@@ -90,7 +90,7 @@ def counts() -> dict:
 _flush_buf = None
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
     """Median device time of one call of ``fn`` in ms, by CUDA events around
     each call. Before each call the 50 MB L2 cache is overwritten (the inputs
     come from device memory, which is what the bound assumes) and the stream
@@ -98,7 +98,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     call's kernels before the device reaches them: the interval then holds
     the kernels, not the time Python takes to launch them. (A plain version
     launches so many kernels that the device still overtakes the host: its
-    time is what its caller waits for.)"""
+    time is what its caller waits for.)
+
+    With ``calls`` > 1 the events go around that many calls back to back and
+    the interval is divided by their number: all but the first find their
+    inputs in the L2, as a kernel of the main path finds the pyramid level
+    that was just built, and the events' own cost is spread."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device=DEV)
@@ -108,14 +113,15 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(reps):
         _flush_buf.zero_()
-        torch.cuda._sleep(400_000)  # device cycles
+        torch.cuda._sleep(400_000 * calls)  # device cycles
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -155,33 +161,36 @@ def kernel_inputs(seed: int = 0):
 
 
 def check_capture(pyr1, pts, win: int):
-    """K1 on all five level shapes: bit-exact blocks and origins."""
+    """K1 on all five level shapes: bit-exact blocks and origins. The level
+    goes in unpadded; the plain version pads it and gathers."""
     search = lk._resolve_search(win, None)
     PAD = lk._pad_for(win, search)
     Rg = lk.region_size(win, search)
-    err, t_k, t_p, t_lib, t_bound = 0.0, [], [], [], []
+    err, t_k, t_w, t_p, t_lib, t_bound = 0.0, [], [], [], [], []
     for lvl, img in enumerate(pyr1):
-        img_p = image._pad_edge(img, PAD).contiguous()
         center = (pts / 2.0**lvl + PAD).contiguous()
-        blk, r0, c0 = capture.capture_level(img_p, center, win, search)
-        blk_p, r0_p, c0_p = capture.capture_level_plain(img_p, center, win, search)
+        blk, r0, c0 = capture.capture_level(img, center, win, search)
+        blk_p, r0_p, c0_p = capture.capture_level_plain(img, center, win, search)
         torch.cuda.synchronize()
         if not (torch.equal(r0, r0_p) and torch.equal(c0, c0_p)):
             raise AssertionError(f"capture_level level {lvl}: origins differ")
         err = max(err, float((blk - blk_p).abs().max()))
         if not torch.equal(blk, blk_p):
             raise AssertionError(f"capture_level level {lvl}: blocks not bit-exact")
-        t_k.append(time_ms(lambda: capture.capture_level(img_p, center, win, search)))
-        t_p.append(time_ms(lambda: capture.capture_level_plain(img_p, center, win, search)))
+        t_k.append(time_ms(lambda: capture.capture_level(img, center, win, search)))
+        t_w.append(time_ms(lambda: capture.capture_level(img, center, win, search), calls=10))
+        t_p.append(time_ms(lambda: capture.capture_level_plain(img, center, win, search)))
         r0l, c0l = r0.long(), c0.long()
-        t_lib.append(time_ms(lambda: img_p.unfold(0, Rg, 1).unfold(1, Rg, 1)[r0l, c0l]))
+        t_lib.append(time_ms(
+            lambda: image._pad_edge(img, PAD).unfold(0, Rg, 1).unfold(1, Rg, 1)[r0l, c0l]))
         n = pts.shape[0]
-        read = min(img_p.numel(), n * Rg * Rg) * 4 + n * 2 * 4
+        read = min(img.numel(), n * Rg * Rg) * 4 + n * 2 * 4
         write = n * Rg * Rg * 4 + 2 * n * 4
         t_bound.append(bound(read + write, 0.0)[0])
     return {
         "max_abs_err": err,
         "ms": statistics.mean(t_k),
+        "warm_ms": statistics.mean(t_w),
         "plain_ms": statistics.mean(t_p),
         "bound_ms": statistics.mean(t_bound),
         "bound_by": "bytes",
@@ -190,20 +199,24 @@ def check_capture(pyr1, pts, win: int):
     }
 
 
-def check_lk_level(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
-    """K2 and K3 called directly at level 0 against their plain versions."""
-    search = lk._resolve_search(win, None)
+def level_templates(pyr0, pts, lvl: int, win: int, search: int):
+    """Templates of level ``lvl`` as a tracked frame has them: blocks captured
+    from the previous frame's level at the features, then ``lk_template``.
+    Returns (blk, raw_r, raw_c, (T, Ix, Iy, stats))."""
     PAD = lk._pad_for(win, search)
-    Rg = lk.region_size(win, search)
-    N = pts.shape[0]
     half = (win - 1) / 2.0
-    img0_p = image._pad_edge(pyr0[0], PAD).contiguous()
-    img1_p = image._pad_edge(pyr1[0], PAD).contiguous()
-    blk, br0, bc0 = capture.capture_level(img0_p, (pts + PAD).contiguous(), win, search)
-    raw_r = (pts[:, 1] + PAD - half - 1.0 - br0).contiguous()
-    raw_c = (pts[:, 0] + PAD - half - 1.0 - bc0).contiguous()
+    p = pts / 2.0**lvl
+    blk, br0, bc0 = capture.capture_level(pyr0[lvl], (p + PAD).contiguous(), win, search)
+    raw_r = (p[:, 1] + PAD - half - 1.0 - br0).contiguous()
+    raw_c = (p[:, 0] + PAD - half - 1.0 - bc0).contiguous()
+    return blk, raw_r, raw_c, lk_kernels.lk_template(blk, raw_r, raw_c, win)
 
-    T, Ix, Iy, st = lk_kernels.lk_template(blk, raw_r, raw_c, win)
+
+def check_lk_template(pyr0, pts, win: int, timed: bool):
+    """K2 called directly at level 0 against its plain version."""
+    search = lk._resolve_search(win, None)
+    N = pts.shape[0]
+    blk, raw_r, raw_c, (T, Ix, Iy, st) = level_templates(pyr0, pts, 0, win, search)
     Tp, Ixp, Iyp, stp = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
     torch.cuda.synchronize()
     err_t = max(float((a - b).abs().max()) for a, b in ((T, Tp), (Ix, Ixp), (Iy, Iyp)))
@@ -217,44 +230,88 @@ def check_lk_level(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
     rel_me = float(((st[:, 4] - stp[:, 4]).abs() / stp[:, 4].abs().clamp(min=1e-6))[textured].max())
     if rel_me > 1e-4:
         raise AssertionError(f"lk_template win={win}: min_eig rel err {rel_me}")
-
-    guess = (pts + PAD).contiguous()
-    region, rr0, rc0 = capture.capture_level(img1_p, guess, win, search)
-    # both versions iterate on the template kernel's outputs
-    g = lk_kernels.lk_iterate(region, T, Ix, Iy, st, guess, rr0, rc0, win, iters)
-    gp = lk_kernels.lk_iterate_plain(region, rr0, rc0, T, Ix, Iy, st, guess, win, iters)
-    torch.cuda.synchronize()
-    ok = textured & torch.isfinite(gp).all(dim=1)
-    err_g = float((g - gp).abs()[ok].max())
-    if err_g > 1e-3:
-        raise AssertionError(f"lk_iterate win={win}: positions differ by {err_g} px")
-    out = {
-        "lk_template": {"max_abs_err": err_t, "min_eig_rel_err": rel_me},
-        "lk_iterate": {"max_abs_err": err_g},
-    }
+    out = {"max_abs_err": err_t, "min_eig_rel_err": rel_me}
     if timed:
         ww = win * win
-        out["lk_template"].update(
-            ms=time_ms(lambda: lk_kernels.lk_template(blk, raw_r, raw_c, win)),
-            plain_ms=time_ms(lambda: lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)),
-            library_ms=None,
-        )
         # the (win+2)^2 bilinear window touches (win+3)^2 floats of each block
         b, by = bound(
             N * ((win + 3) ** 2 + 2) * 4 + N * (3 * ww + 5) * 4,
             N * ((win + 2) ** 2 * 9 + ww * 10),
         )
-        out["lk_template"].update(bound_ms=b, bound_by=by)
-        out["lk_iterate"].update(
-            ms=time_ms(lambda: lk_kernels.lk_iterate(region, T, Ix, Iy, st, guess, rr0, rc0, win, iters)),
-            plain_ms=time_ms(lambda: lk_kernels.lk_iterate_plain(region, rr0, rc0, T, Ix, Iy, st, guess, win, iters)),
-            library_ms=None,
+        out.update(
+            ms=time_ms(lambda: lk_kernels.lk_template(blk, raw_r, raw_c, win)),
+            plain_ms=time_ms(lambda: lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)),
+            library_ms=None, bound_ms=b, bound_by=by,
         )
-        b, by = bound(
-            N * (Rg * Rg + 3 * ww + 5 + 2 + 2) * 4 + N * 2 * 4,
-            N * iters * ww * 13,
+    return out
+
+
+def check_lk_iterate(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
+    """K3 on all five level shapes, on the template kernel's outputs: the
+    region and origins it hands on bit-exact against ``capture_level_plain``,
+    positions within 1e-3 px of ``lk_iterate_plain`` on textured slots, two
+    calls on the same inputs equal bit for bit, for every block size built.
+    Times (kernel at each block size, plain, bound) are means over the five
+    level shapes; the bound counts each level pixel under a region once."""
+    search = lk._resolve_search(win, None)
+    PAD = lk._pad_for(win, search)
+    Rg = lk.region_size(win, search)
+    N, ww = pts.shape[0], win * win
+    sizes = lk_kernels.ITERATE_THREADS_BUILT
+    err_g = 0.0
+    t_k = {nt: [] for nt in sizes}
+    t_w, t_p, t_bound, by_iters = [], [], [], {}
+    for lvl, level in enumerate(pyr1):
+        _, _, _, (T, Ix, Iy, st) = level_templates(pyr0, pts, lvl, win, search)
+        guess = (pts / 2.0**lvl + PAD).contiguous()
+        args = (level, T, Ix, Iy, st, guess, win, search, iters)
+        gp, region_p, r0_p, c0_p = lk_kernels.lk_iterate_plain(*args)
+        ok = (st[:, 4] > 1e-2) & torch.isfinite(gp).all(dim=1)
+        for nt in sizes:
+            g, region, r0, c0 = lk_kernels.lk_iterate(*args, threads=nt)
+            again = lk_kernels.lk_iterate(*args, threads=nt)
+            torch.cuda.synchronize()
+            where = f"lk_iterate win={win} level {lvl} threads={nt}"
+            if not (torch.equal(r0, r0_p) and torch.equal(c0, c0_p)):
+                raise AssertionError(f"{where}: origins differ")
+            if not torch.equal(region, region_p):
+                raise AssertionError(f"{where}: region not bit-exact")
+            if not all(torch.equal(a, b) for a, b in zip((g, region, r0, c0), again)):
+                raise AssertionError(f"{where}: two calls on the same inputs differ")
+            e = float((g - gp).abs()[ok].max())
+            if not e <= 1e-3:
+                raise AssertionError(f"{where}: positions differ by {e} px")
+            if nt == lk_kernels.ITERATE_THREADS:
+                err_g = max(err_g, e)
+            if timed:
+                t_k[nt].append(time_ms(lambda: lk_kernels.lk_iterate(*args, threads=nt)))
+        if timed:
+            t_w.append(time_ms(lambda: lk_kernels.lk_iterate(*args), calls=10))
+            if lvl == 0:
+                # capture-and-hand-on alone (0 iterations) and what an iteration adds
+                by_iters = {str(n): time_ms(lambda: lk_kernels.lk_iterate(*args[:-1], n), calls=10)
+                            for n in (0, iters, 2 * iters)}
+            t_p.append(time_ms(lambda: lk_kernels.lk_iterate_plain(*args), reps=5, warmup=1))
+            t_bound.append(bound(
+                (min(level.numel(), N * Rg * Rg) + N * (3 * ww + 5 + 2)) * 4
+                + N * (Rg * Rg + 2 + 2) * 4,
+                N * iters * ww * 13,
+            ))
+    out = {"max_abs_err": err_g}
+    if timed:
+        nt = lk_kernels.ITERATE_THREADS
+        out.update(
+            ms=statistics.mean(t_k[nt]), warm_ms=statistics.mean(t_w),
+            plain_ms=statistics.mean(t_p),
+            bound_ms=statistics.mean(b for b, _ in t_bound),
+            bound_by=t_bound[0][1],  # of level 0, the largest
+            library_ms=None, threads=nt,
+            ms_by_threads={str(k): statistics.mean(v) for k, v in t_k.items()},
+            level0_ms_by_threads={str(k): v[0] for k, v in t_k.items()},
+            level0_bound_ms=t_bound[0][0], level0_warm_ms_by_iters=by_iters,
+            bar="region and origins bit-exact, positions 1e-3 px, two calls equal, on all "
+                "five level shapes at every block size; times are means over the five",
         )
-        out["lk_iterate"].update(bound_ms=b, bound_by=by)
     return out
 
 
@@ -273,16 +330,13 @@ def track_cached_plain(pyr0, pyr1, pts, valid, win: int, iters: int):
     ok_all = torch.ones_like(valid)
     for lvl in range(top, -1, -1):
         p = pts / 2.0**lvl
-        blk, br0, bc0 = capture.capture_level_plain(
-            image._pad_edge(pyr0[lvl], PAD), p + PAD, win, search)
+        blk, br0, bc0 = capture.capture_level_plain(pyr0[lvl], p + PAD, win, search)
         raw_r = p[:, 1] + PAD - half - 1.0 - br0
         raw_c = p[:, 0] + PAD - half - 1.0 - bc0
         ok_all &= (raw_r > -0.75) & (raw_r < lim + 0.75) & (raw_c > -0.75) & (raw_c < lim + 0.75)
         T, Ix, Iy, st = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
-        region, rr0, rc0 = capture.capture_level_plain(
-            image._pad_edge(pyr1[lvl], PAD), guess + PAD, win, search)
         guess = lk_kernels.lk_iterate_plain(
-            region, rr0, rc0, T, Ix, Iy, st, guess + PAD, win, iters) - PAD
+            pyr1[lvl], T, Ix, Iy, st, guess + PAD, win, search, iters)[0] - PAD
         if lvl > 0:
             guess = guess * 2.0
     inside = ((guess[:, 0] >= 0) & (guess[:, 0] <= W - 1)
@@ -331,14 +385,24 @@ def check_min_eig(img0):
 
 def phase_kernels() -> dict:
     img0, pyr0, pyr1, pts, corner = kernel_inputs()
-    res = {"capture_level": check_capture(pyr1, pts, win=21)}
-    res.update(check_lk_level(pyr0, pyr1, pts, win=21, iters=10, timed=True))
-    parity = check_lk_level(pyr0, pyr1, pts, win=32, iters=10, timed=False)
+    res = {
+        "capture_level": check_capture(pyr1, pts, win=21),
+        "lk_template": check_lk_template(pyr0, pts, win=21, timed=True),
+        "lk_iterate": check_lk_iterate(pyr0, pyr1, pts, win=21, iters=10, timed=True),
+    }
+    parity = {
+        "lk_template": check_lk_template(pyr0, pts, win=32, timed=False),
+        "lk_iterate": check_lk_iterate(pyr0, pyr1, pts, win=32, iters=10, timed=False),
+    }
     res["min_eig_response"] = check_min_eig(img0)
     tracks = [check_track(pyr0, pyr1, pts, corner, 21, 10),
               check_track(pyr0, pyr1, pts, corner, 32, 10)]
+    # what the events of one timed call cost by themselves; part of every `ms`
+    events_only = time_ms(lambda: None)
     emit({"phase": "kernels", "shapes": {"N": N_FEAT, "image": SHAPE, "win": 21, "Rg": 55, "iters": 10},
-          "timing": "median of 20 single calls by CUDA events, L2 flushed and the stream kept busy before each",
+          "events_only_ms": events_only,
+          "timing": "ms: median of 20 single calls by CUDA events, L2 flushed and the stream kept busy "
+                    "before each; warm_ms: the same around 10 calls back to back, per call",
           "results": res, "win32_Rg84": parity, "track_cached": tracks})
     return res
 
@@ -418,6 +482,14 @@ def phase_main(n_frames: int) -> dict:
     emit(line)
     if any(v <= 0 for v in launches.values()):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
+    # A tracked frame is two launches per pyramid image (template, iterate);
+    # the capture kernel runs only at init and after a reseed.
+    n_img = cfg.lk_levels + 1
+    want = {"lk_template": n_img * len(stats), "lk_iterate": n_img * len(stats),
+            "capture_level": n_img * (1 + n_reseed)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launch counts {got} are not {want}")
     if n_boot < 1 or n_pnp < 1 or result["ba_calls"] < 1:
         raise AssertionError("main path saw no bootstrap, no PnP frame or no BA call")
     if not poses_finite:

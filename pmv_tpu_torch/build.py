@@ -28,6 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("capture.cu", "lk.cu", "min_eig.cu")
+HEADERS = ("region.cuh",)  # included by the sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # every product and sum rounds on its own, as in the plain versions
@@ -39,9 +40,10 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes; every function returns the cudaError_t of its launch and
 # takes the stream last.
 SIGNATURES = {
-    "pmv_capture_level": (_p, _i, _i, _p, _i, _i, _i, _p, _p, _p, _p),
+    "pmv_capture_level": (_p, _i, _i, _i, _p, _i, _i, _i, _p, _p, _p, _p),
     "pmv_lk_template": (_p, _p, _p, _i, _i, _i, _f, _p, _p, _p, _p, _p),
-    "pmv_lk_iterate": (_p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _p, _p),
+    "pmv_lk_iterate": (_p, _i, _i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i,
+                       _p, _p, _p, _p, _p),
     "pmv_min_eig_response": (_p, _i, _i, _p, _p),
 }
 
@@ -67,7 +69,7 @@ def _nvcc() -> str:
 
 def _digest(extra_flags: tuple[str, ...]) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS + extra_flags).encode())

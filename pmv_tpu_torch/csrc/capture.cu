@@ -1,65 +1,79 @@
 // LK search-region block capture for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pmv_tpu/frontend/pallas_capture.py (_capture_call,
-// entry capture_level): for each feature, copy the (Rg, Rg) block of the
+// entry capture_level): for each feature, the (Rg, Rg) block of the
 // edge-padded pyramid level whose top-left corner is the integer origin
-// (r0, c0) = floor(center - half) - m, clipped to the level (the clipping
-// that capture_level does around the TPU kernel is done here by the block
-// itself). Pure extraction, no arithmetic on pixels, so the result is
-// bit-exact.
+// (r0, c0) = floor(center - half) - m, clipped to the padded level. Pure
+// extraction, no arithmetic on pixels, so the result is bit-exact.
 //
-// Bound: bytes. Each block element is read once and written once; nothing is
-// computed. One thread block per feature derives its own origin and strides
-// over the Rg*Rg elements, so writes are fully coalesced and reads are
-// coalesced along each Rg-wide row segment. The TPU design's aligned slab,
-// rotate pair and post-crop served its tile-granular slicing and are gone.
+// Where it runs: at init and after a reseed only, when the cached blocks do
+// not cover the new feature positions. On a tracked frame lk_iterate (lk.cu)
+// captures its own region and hands it on.
+//
+// Bound: bytes by the roofline (each block element is read once and written
+// once; nothing is computed); in fact the latency of a block's dependent
+// accesses: centre, then region, then the write. What the design does:
+// - it reads the unpadded level at clamped coordinates (region.cuh), so no
+//   padded copy of the level is written and read back first;
+// - one thread block per feature derives its own origin and stages the
+//   region in shared memory with the same asynchronous copies as lk_iterate
+//   (region.cuh: a warp per row, lanes over columns, no index divided), so
+//   all of a block's reads are in flight at once, one round trip deep;
+// - the block is then written out as one flat, fully coalesced copy;
+// - the level is at most 1.8 MB and stays in the 50 MB L2 while 512
+//   overlapping regions read it.
+// The TPU design's aligned slab, rotate pair and post-crop served its
+// tile-granular slicing and are gone.
 
 #include <cuda_runtime.h>
 
+#include "region.cuh"
+
 namespace {
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return v < lo ? lo : (v > hi ? hi : v);
-}
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 
-__global__ void capture_kernel(const float* __restrict__ img, int Hp, int Wp,
-                               const float* __restrict__ center, int Rg,
-                               int win, float* __restrict__ out,
+__global__ void capture_kernel(const float* __restrict__ level, int H, int W,
+                               int pad, const float* __restrict__ center,
+                               int Rg, int win, float* __restrict__ out,
                                int* __restrict__ r0_out,
                                int* __restrict__ c0_out) {
+    extern __shared__ float s_reg[];  // Rg*Rg
     const int n = blockIdx.x;
-    const float half = (float)(win - 1) / 2.0f;
-    const int m = (Rg - win) / 2;  // center the block on the capture position
-    const int r0 = clampi((int)floorf(center[2 * n + 1] - half) - m, 0,
-                          max(Hp - Rg, 0));
-    const int c0 = clampi((int)floorf(center[2 * n] - half) - m, 0,
-                          max(Wp - Rg, 0));
+    const int r0 = pmv::region_origin(center[2 * n + 1], win, Rg, H + 2 * pad);
+    const int c0 = pmv::region_origin(center[2 * n], win, Rg, W + 2 * pad);
+    pmv::stage_region(s_reg, level, H, W, pad, r0, c0, Rg, WARPS);
     if (threadIdx.x == 0) {
         r0_out[n] = r0;
         c0_out[n] = c0;
     }
-    const float* src = img + (size_t)r0 * Wp + c0;
-    float* dst = out + (size_t)n * Rg * Rg;
-    const int total = Rg * Rg;
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-        const int r = i / Rg;
-        const int c = i - r * Rg;
-        dst[i] = src[(size_t)r * Wp + c];
-    }
+    pmv::wait_staged();
+    __syncthreads();
+    const int rr = Rg * Rg;
+    float* dst = out + (size_t)n * rr;
+    for (int i = threadIdx.x; i < rr; i += THREADS) dst[i] = s_reg[i];
 }
 
 }  // namespace
 
-// img: (Hp, Wp) float32 with Hp, Wp >= Rg; center: (N, 2) float32 (u=column,
-// v=row) in the image's coordinates; out: (N, Rg, Rg) float32; r0_out,
-// c0_out: (N,) int32 block origins.
-extern "C" int pmv_capture_level(const float* img, int Hp, int Wp,
+// level: (H, W) float32, unpadded; pad: the edge padding the coordinates
+// assume; center: (N, 2) float32 (u=column, v=row) in padded coordinates;
+// out: (N, Rg, Rg) float32; r0_out, c0_out: (N,) int32 block origins in
+// padded coordinates.
+extern "C" int pmv_capture_level(const float* level, int H, int W, int pad,
                                  const float* center, int N, int Rg, int win,
                                  float* out, int* r0_out, int* c0_out,
                                  cudaStream_t stream) {
-    if (N > 0) {
-        capture_kernel<<<N, 256, 0, stream>>>(img, Hp, Wp, center, Rg, win, out,
-                                              r0_out, c0_out);
+    if (N <= 0) return 0;
+    const size_t bytes = (size_t)Rg * Rg * sizeof(float);
+    if (bytes > 48 * 1024) {
+        int err = (int)cudaFuncSetAttribute(
+            capture_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)bytes);
+        if (err) return err;
     }
+    capture_kernel<<<N, THREADS, bytes, stream>>>(level, H, W, pad, center, Rg,
+                                                  win, out, r0_out, c0_out);
     return (int)cudaGetLastError();
 }

@@ -1,36 +1,76 @@
 // Pyramidal Lucas-Kanade level kernels for Hopper (sm_90a): template
-// statistics and the iteration loop.
+// statistics, and the iteration loop that captures its own search region.
 //
 // Replace the two TPU kernels of pmv_tpu/frontend/pallas_lk.py (_level_call):
-// _make_template_kernel -> lk_template, _make_iter_kernel -> lk_iterate.
+// _make_template_kernel -> lk_template, _make_iter_kernel -> lk_iterate. On a
+// tracked frame lk_iterate also does the work of the TPU capture kernel
+// (pmv_tpu/frontend/pallas_capture.py): the TPU captures in a kernel of its
+// own because it slices only at tile granularity, and keeps template and
+// iteration apart because both blocks would not fit its scoped fast memory.
+// Neither reason holds here: a Hopper block holds the 12.1 KB region (28 KB
+// at Rg=84) in shared memory with room to spare.
 //
 // lk_template: bilinear-sample a (win+2)^2 window from the previous frame's
 // cached (Rg, Rg) block at the clipped float offset; T = interior, Ix, Iy =
 // central differences * 0.5; Gxx, Gxy, Gyy sums; inv_det (0 where det <=
-// 1e-6); min_eig = (mean - rad) / win^2.
+// 1e-6); min_eig = (mean - rad) / win^2. Bound: bytes.
 //
-// lk_iterate: `iters` LK updates per feature with the search region resident
-// in shared memory: sample win x win at clip((g - half) - reg0, 0,
-// Rg - win - 1.000001), r = T - I, bx = sum r*Ix, by = sum r*Iy,
-// du = (Gyy*bx - Gxy*by)*inv_det, dv = (Gxx*by - Gxy*bx)*inv_det,
-// g += (dv, du) in (row, col).
+// lk_iterate, one launch per level, one thread block per feature:
+//  1. the region's integer origin from the guess (region.cuh, the same
+//     floor-and-clip as capture_level);
+//  2. the (Rg, Rg) region of the unpadded level, read at clamped coordinates
+//     (= edge replication) into shared memory;
+//  3. the region and its origin written out as the next frame's template
+//     block;
+//  4. `iters` LK updates with the region resident in shared memory: sample
+//     win x win at clip((g - half) - reg0, 0, Rg - win - 1.000001),
+//     r = T - I, bx = sum r*Ix, by = sum r*Iy,
+//     du = (Gyy*bx - Gxy*by)*inv_det, dv = (Gxx*by - Gxy*bx)*inv_det,
+//     g += (dv, du) in (row, col).
 //
-// Bound: bytes for both (the block or region is read once from device
-// memory; the iteration loop itself touches no device memory). One thread
-// block per feature; the region (12.1 KB at Rg=55, 28 KB at Rg=84) and
-// T/Ix/Iy live in shared memory across the iterations; bx/by and the G sums
-// are block reductions (warp shuffle, then a fixed-order sum of the warp
-// partials, so every thread holds the same bits and runs are repeatable).
-// The TPU design's feature-lanes layout, 128-lane groups, binary-shift
-// window select and packed scalar rows are gone: a thread indexes its tap
-// directly. The two kernels stay separate here so that each TPU kernel has
-// its counterpart.
+// What bounds lk_iterate: by the roofline, bytes (the level read once, T/Ix/
+// Iy read, the region written); in fact latency, of the block's dependent
+// accesses (guess, then region) and of `iters` dependent iterations, each a
+// reduction over the window. What the design does about it:
+//  - the region arrives by asynchronous copies (region.cuh), all in flight
+//    at once; while they fly each iterating thread loads its own taps' T,
+//    Ix, Iy and the feature's statistics into registers, and works out its
+//    taps' shared-memory offsets, once for all iterations;
+//  - the region never makes a round trip through device memory, and no
+//    iterating thread waits for its way out: the first ITER_WARPS warps
+//    iterate, the block's other warps write the region out from shared
+//    memory meanwhile and leave;
+//  - two warps iterate whatever the block size. Measured on an H100, an
+//    iteration is bound by its chain of dependent instructions (position ->
+//    offsets -> taps -> shuffles -> barrier -> partials -> update), not by
+//    bytes: more warps add partials and redundant copies of the chain's
+//    scalar part, one warp alone gets too long a run of taps;
+//  - a thread's taps are a row strip of 7, so neighbouring taps share
+//    their row blends ((1-fr)*a + fr*b of a column is computed once and
+//    serves the taps on either side, as in the plain version's row pass),
+//    and the taps carry no branch (a tap beyond the window has zero Ix, Iy
+//    and adds nothing), so that their loads overlap;
+//  - an iteration has one barrier, among the iterating warps only: bx and
+//    by go through the warp shuffles together, the warps' partials are
+//    written to a buffer chosen by the iteration's parity (so the next
+//    iteration's writes cannot overtake this one's reads), and every thread
+//    adds the partials in one fixed tree order. All threads therefore hold
+//    the same bits of the position, and runs repeat bit for bit;
+//  - the block size is a template parameter (128, 256 or 448 threads); the
+//    wrapper names the one that measured fastest.
+// T, Ix, Iy live in registers, not in shared memory, and shared memory holds
+// only the region and the partials: a kernel that also computes the
+// template (folding lk_template in) would stage the (win+3)^2 patch of the
+// cached block behind the partials and fill the same registers from it, with
+// no change to the loop.
 //
 // The bilinear blend is row blend then column blend, (1-f)*a + f*b, as in
 // the TPU kernel; compiled with --fmad=false so that it rounds like the
 // plain version. Reduction order differs from the plain version.
 
 #include <cuda_runtime.h>
+
+#include "region.cuh"
 
 namespace {
 
@@ -123,62 +163,149 @@ __global__ void lk_template_kernel(const float* __restrict__ blk,
     }
 }
 
-__global__ void lk_iterate_kernel(const float* __restrict__ region,
-                                  const float* __restrict__ T,
-                                  const float* __restrict__ Ix,
-                                  const float* __restrict__ Iy,
-                                  const float* __restrict__ stats,
-                                  const float* __restrict__ guess,
-                                  const int* __restrict__ reg_r0,
-                                  const int* __restrict__ reg_c0, int Rg,
-                                  int win, int iters, float i_lim,
-                                  float* __restrict__ out) {
-    extern __shared__ float smem[];
-    const int n = blockIdx.x;
-    const int ww = win * win;
-    float* s_reg = smem;              // Rg*Rg
-    float* s_T = s_reg + Rg * Rg;     // win^2 each
-    float* s_Ix = s_T + ww;
-    float* s_Iy = s_Ix + ww;
-    float* part = s_Iy + ww;          // WARPS
+// Warps that run the iterations. The window is dealt out over their lanes in
+// row strips of STRIP taps: strip s covers row s / S, columns (s % S) * STRIP
+// onwards, with S = ceil(win / STRIP) strips per row (63 strips on 64 lanes
+// at win=21). A strip's last taps may lie beyond the window's row: they have
+// zero Ix and Iy and read up to SLACK floats past the region's last row,
+// which are zeroed so that nothing non-finite is multiplied by those zeros.
+constexpr int ITER_WARPS = 2;
+constexpr int ITER_LANES = ITER_WARPS * 32;
+constexpr int STRIP = 7;
+constexpr int SLACK = 8;
 
-    const float* reg = region + (size_t)n * Rg * Rg;
-    for (int i = threadIdx.x; i < Rg * Rg; i += THREADS) s_reg[i] = reg[i];
-    const size_t base = (size_t)n * ww;
-    for (int i = threadIdx.x; i < ww; i += THREADS) {
-        s_T[i] = T[base + i];
-        s_Ix[i] = Ix[base + i];
-        s_Iy[i] = Iy[base + i];
+// NT threads; each of the first ITER_LANES has at most STRIPS strips (strip
+// s belongs to thread s % ITER_LANES). Shared memory: the region (Rg*Rg
+// floats), SLACK zeros, then two buffers of ITER_WARPS (bx, by) partials.
+
+template <int NT, int STRIPS>
+__global__ void __launch_bounds__(NT)
+lk_iterate_kernel(const float* __restrict__ level, int H, int W, int pad,
+                  const float* __restrict__ T, const float* __restrict__ Ix,
+                  const float* __restrict__ Iy,
+                  const float* __restrict__ stats,
+                  const float* __restrict__ guess, int Rg, int win, int iters,
+                  float i_lim, float* __restrict__ out,
+                  float* __restrict__ region_out, int* __restrict__ r0_out,
+                  int* __restrict__ c0_out) {
+    static_assert(NT >= ITER_LANES && NT % 32 == 0, "block too small");
+    extern __shared__ float smem[];
+    const int rr = Rg * Rg;
+    float* s_reg = smem;
+    float2* part = reinterpret_cast<float2*>(smem + ((rr + SLACK + 1) & ~1));
+
+    const int n = blockIdx.x, tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    float g_c = guess[2 * n];       // u = column
+    float g_r = guess[2 * n + 1];   // v = row
+    const int r0 = pmv::region_origin(g_r, win, Rg, H + 2 * pad);
+    const int c0 = pmv::region_origin(g_c, win, Rg, W + 2 * pad);
+    pmv::stage_region(s_reg, level, H, W, pad, r0, c0, Rg, NT / 32);
+    if (tid < SLACK) s_reg[rr + tid] = 0.0f;
+
+    // While the copies fly: this thread's strips, for all iterations. A
+    // strip it does not have sits on the region's corner with zero Ix, Iy.
+    const int S = (win + STRIP - 1) / STRIP;  // strips per window row
+    const int nstrips = win * S;
+    const size_t base = (size_t)n * win * win;
+    int off[STRIPS];  // offset of the strip's first tap inside the region
+    float tT[STRIPS][STRIP], tIx[STRIPS][STRIP], tIy[STRIPS][STRIP];
+#pragma unroll
+    for (int k = 0; k < STRIPS; ++k) {
+        const int s = tid + k * ITER_LANES;
+        off[k] = 0;
+        int row = 0, col = 0, len = 0;
+        if (tid < ITER_LANES && s < nstrips) {
+            row = s / S;
+            col = (s - row * S) * STRIP;
+            len = min(STRIP, win - col);
+            off[k] = row * Rg + col;
+        }
+#pragma unroll
+        for (int j = 0; j < STRIP; ++j) {
+            tT[k][j] = tIx[k][j] = tIy[k][j] = 0.0f;
+            if (j < len) {
+                const size_t i = base + row * win + col + j;
+                tT[k][j] = T[i];
+                tIx[k][j] = Ix[i];
+                tIy[k][j] = Iy[i];
+            }
+        }
     }
     const float* st = stats + (size_t)n * 5;
     const float Gxx = st[0], Gxy = st[1], Gyy = st[2], inv_det = st[3];
-    const float r0 = (float)reg_r0[n], c0 = (float)reg_c0[n];
+    const float r0f = (float)r0, c0f = (float)c0;
     const float half = (float)(win - 1) / 2.0f;
-    float g_c = guess[2 * n];       // u = column
-    float g_r = guess[2 * n + 1];   // v = row
+
+    pmv::wait_staged();
     __syncthreads();
 
+    // Hand the region on: by the warps that do not iterate, which then
+    // leave; by everyone first where every warp iterates.
+    float* dst = region_out + (size_t)n * rr;
+    if (NT > ITER_LANES) {
+        if (tid >= ITER_LANES) {
+            for (int i = tid - ITER_LANES; i < rr; i += NT - ITER_LANES)
+                dst[i] = s_reg[i];
+            return;
+        }
+    } else {
+        for (int i = tid; i < rr; i += NT) dst[i] = s_reg[i];
+    }
+    if (tid == 0) {
+        r0_out[n] = r0;
+        c0_out[n] = c0;
+    }
+
     for (int it = 0; it < iters; ++it) {
-        const float lr = clampf((g_r - half) - r0, 0.0f, i_lim);
-        const float lc = clampf((g_c - half) - c0, 0.0f, i_lim);
+        const float lr = clampf((g_r - half) - r0f, 0.0f, i_lim);
+        const float lc = clampf((g_c - half) - c0f, 0.0f, i_lim);
         const float fi = floorf(lr), fj = floorf(lc);
         const float fr = lr - fi, fc = lc - fj;
-        const int i0 = (int)fi, j0 = (int)fj;
+        const float wr = 1.0f - fr, wc = 1.0f - fc;
+        const float* p0 = s_reg + (int)fi * Rg + (int)fj;
         float bx = 0.0f, by = 0.0f;
-        for (int i = threadIdx.x; i < ww; i += THREADS) {
-            const int a = i / win, b = i - a * win;
-            const float r = s_T[i] - tap(s_reg, Rg, i0 + a, j0 + b, fr, fc);
-            bx += r * s_Ix[i];
-            by += r * s_Iy[i];
+#pragma unroll
+        for (int k = 0; k < STRIPS; ++k) {
+            const float* p = p0 + off[k];
+            float rb[STRIP + 1];  // row blends of the strip's columns
+#pragma unroll
+            for (int j = 0; j <= STRIP; ++j) rb[j] = wr * p[j] + fr * p[Rg + j];
+#pragma unroll
+            for (int j = 0; j < STRIP; ++j) {
+                const float r = tT[k][j] - (wc * rb[j] + fc * rb[j + 1]);
+                bx += r * tIx[k][j];
+                by += r * tIy[k][j];
+            }
         }
-        bx = block_sum(bx, part);
-        by = block_sum(by, part);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            bx += __shfl_xor_sync(0xffffffffu, bx, o);
+            by += __shfl_xor_sync(0xffffffffu, by, o);
+        }
+        float2* pp = part + (it & 1) * ITER_WARPS;
+        if (lane == 0) pp[warp] = make_float2(bx, by);
+        // barrier 1: the iterating warps only (the others may have left)
+        asm volatile("bar.sync 1, %0;" ::"n"(ITER_LANES) : "memory");
+        float2 v[ITER_WARPS];
+#pragma unroll
+        for (int w = 0; w < ITER_WARPS; ++w) v[w] = pp[w];
+#pragma unroll
+        for (int s = 1; s < ITER_WARPS; s *= 2) {
+#pragma unroll
+            for (int w = 0; w + s < ITER_WARPS; w += 2 * s) {
+                v[w].x += v[w + s].x;
+                v[w].y += v[w + s].y;
+            }
+        }
+        bx = v[0].x;
+        by = v[0].y;
         const float du = (Gyy * bx - Gxy * by) * inv_det;
         const float dv = (Gxx * by - Gxy * bx) * inv_det;
         g_r += dv;
         g_c += du;
     }
-    if (threadIdx.x == 0) {
+    if (tid == 0) {
         out[2 * n] = g_c;
         out[2 * n + 1] = g_r;
     }
@@ -188,6 +315,32 @@ int opt_in(const void* fn, size_t bytes) {
     if (bytes <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int NT, int STRIPS>
+int launch_iterate(const float* level, int H, int W, int pad, const float* T,
+                   const float* Ix, const float* Iy, const float* stats,
+                   const float* guess, int N, int Rg, int win, int iters,
+                   float i_lim, float* out, float* region_out, int* r0_out,
+                   int* c0_out, cudaStream_t stream) {
+    const size_t bytes = (((size_t)Rg * Rg + SLACK + 1) & ~(size_t)1) * sizeof(float) +
+                         2 * ITER_WARPS * sizeof(float2);
+    int err = opt_in((const void*)lk_iterate_kernel<NT, STRIPS>, bytes);
+    if (err) return err;
+    lk_iterate_kernel<NT, STRIPS><<<N, NT, bytes, stream>>>(
+        level, H, W, pad, T, Ix, Iy, stats, guess, Rg, win, iters, i_lim, out,
+        region_out, r0_out, c0_out);
+    return (int)cudaGetLastError();
+}
+
+template <int NT, typename... Args>
+int launch_iterate_strips(int win, Args... args) {
+    const int nstrips = win * ((win + STRIP - 1) / STRIP);
+    const int strips = (nstrips + ITER_LANES - 1) / ITER_LANES;
+    if (strips <= 1) return launch_iterate<NT, 1>(args...);
+    if (strips <= 2) return launch_iterate<NT, 2>(args...);
+    if (strips <= 3) return launch_iterate<NT, 3>(args...);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -209,24 +362,29 @@ extern "C" int pmv_lk_template(const float* blk, const float* raw_r,
     return (int)cudaGetLastError();
 }
 
-// region: (N, Rg, Rg); T, Ix, Iy: (N, win, win); stats: (N, 5); guess, out:
-// (N, 2) as (u=column, v=row) in padded-level coordinates; reg_r0, reg_c0:
-// (N,) int32 region origins. i_lim is the upper clip of the local window
-// position, Rg - win - 1.000001, rounded by the caller.
-extern "C" int pmv_lk_iterate(const float* region, const float* T,
-                              const float* Ix, const float* Iy,
-                              const float* stats, const float* guess,
-                              const int* reg_r0, const int* reg_c0, int N,
+// level: (H, W) float32, unpadded; pad: the edge padding the coordinates
+// assume; T, Ix, Iy: (N, win, win); stats: (N, 5); guess, out: (N, 2) as
+// (u=column, v=row) in padded-level coordinates; region_out: (N, Rg, Rg);
+// r0_out, c0_out: (N,) int32 region origins in padded coordinates. i_lim is
+// the upper clip of the local window position, Rg - win - 1.000001, rounded
+// by the caller. threads: 128, 256 or 448; win * ceil(win / 7) <= 192 (three
+// strips per iterating thread; win <= 35).
+extern "C" int pmv_lk_iterate(const float* level, int H, int W, int pad,
+                              const float* T, const float* Ix, const float* Iy,
+                              const float* stats, const float* guess, int N,
                               int Rg, int win, int iters, float i_lim,
-                              float* out,
-                              cudaStream_t stream) {
+                              int threads, float* out, float* region_out,
+                              int* r0_out, int* c0_out, cudaStream_t stream) {
     if (N <= 0) return 0;
-    const size_t bytes =
-        ((size_t)Rg * Rg + 3 * (size_t)win * win + WARPS) * sizeof(float);
-    int err = opt_in((const void*)lk_iterate_kernel, bytes);
-    if (err) return err;
-    lk_iterate_kernel<<<N, THREADS, bytes, stream>>>(
-        region, T, Ix, Iy, stats, guess, reg_r0, reg_c0, Rg, win, iters, i_lim,
-        out);
-    return (int)cudaGetLastError();
+#define PMV_ITERATE(NT)                                                      \
+    launch_iterate_strips<NT>(win, level, H, W, pad, T, Ix, Iy, stats, guess, N, \
+                            Rg, win, iters, i_lim, out, region_out, r0_out,    \
+                            c0_out, stream)
+    switch (threads) {
+        case 128: return PMV_ITERATE(128);
+        case 256: return PMV_ITERATE(256);
+        case 448: return PMV_ITERATE(448);
+    }
+#undef PMV_ITERATE
+    return (int)cudaErrorInvalidValue;
 }

@@ -8,18 +8,27 @@ frame is captured once around the current guess; all LK iterations sample
 inside it, and it doubles as the next frame's template source. Blocks are
 feature-major ``(N, Rg, Rg)``.
 
-This module holds the plain PyTorch versions of three CUDA kernels and the
-level/pyramid logic around them:
+A tracked frame costs two kernel launches per level: ``lk_template`` on the
+cached block, then ``lk_iterate``, which captures the region itself, iterates
+in it and returns it. The capture kernel ``capture_level`` runs only from
+:func:`capture_blocks`, at init and after a reseed. All three read the
+unpadded level at clamped coordinates; positions and origins stay in the
+coordinates of the level edge-padded by :func:`_pad_for`, but no padded copy
+is made on the card (the TPU package's ``jnp.pad`` per level and frame is
+gone).
 
-- :func:`_capture_region`   — plain version of ``capture.capture_level``
+This module holds the pieces of the plain PyTorch versions of the three CUDA
+kernels and the level/pyramid logic around them:
+
+- :func:`_capture_region`   — gather of ``capture.capture_level_plain`` (on a
+  padded level)
 - :func:`template_stats`    — plain version of ``lk_kernels.lk_template``
-- :func:`_iterate`          — plain version of ``lk_kernels.lk_iterate``
+- :func:`_iterate`          — the loop of ``lk_kernels.lk_iterate_plain``
 
 :func:`_track_level_cached` and :func:`capture_blocks` call the wrappers in
 ``capture`` / ``lk_kernels``, which launch the kernels for CUDA tensors and
-fall through to the plain versions above for CPU tensors. (Those modules
-import this one for the plain versions, hence the function-level imports
-below.)
+fall through to the plain versions for CPU tensors. (Those modules import
+this one for the plain versions, hence the function-level imports below.)
 
 Bilinear sampling is by direct indexing in the order the kernels use — row
 blend, then column blend, each ``(1-f)*a + f*b``.
@@ -31,13 +40,13 @@ from __future__ import annotations
 
 import torch
 
-from pmv_tpu_torch.frontend.image import _pad_edge
-
 Tensor = torch.Tensor
 
 
 def _pad_for(win: int, search: int) -> int:
-    """Image padding so every block slice fits (edge replication)."""
+    """Edge padding (replication) under which every block slice fits; the
+    offset between level coordinates and the padded coordinates that
+    positions and block origins are kept in."""
     return win + 2 * search + 4
 
 
@@ -131,9 +140,10 @@ def block_origins(shape, center: Tensor, win: int, search: int):
 
 
 def _capture_region(img_padded: Tensor, center: Tensor, win: int, search: int):
-    """Plain version of the ``capture_level`` kernel: slice the per-feature
-    (Rg, Rg) search-region block around ``center`` (float positions in
-    padded-image coords). Returns (region (N, Rg, Rg), r0, c0)."""
+    """The gather of the ``capture_level`` kernel's plain version: slice the
+    per-feature (Rg, Rg) search-region block around ``center`` (float
+    positions in padded-image coords) out of the edge-padded level. Returns
+    (region (N, Rg, Rg), r0, c0)."""
     Rg = region_size(win, search)
     r0, c0 = block_origins(img_padded.shape, center, win, search)
     ar = torch.arange(Rg, device=img_padded.device)
@@ -144,8 +154,9 @@ def _capture_region(img_padded: Tensor, center: Tensor, win: int, search: int):
 
 def _iterate(region, reg_r0, reg_c0, T, Ix, Iy, stats, guess_padded,
              win: int, iters: int):
-    """Plain version of the ``lk_iterate`` kernel: the LK iteration loop on a
-    preloaded region block; positions (u, v) in padded-image coords."""
+    """The loop of the ``lk_iterate`` kernel's plain version: the LK
+    iterations on a captured region block; positions (u, v) in padded-image
+    coords."""
     Rg = region.shape[-1]
     Gxx, Gxy, Gyy, inv_det = stats[:, 0], stats[:, 1], stats[:, 2], stats[:, 3]
     half = (win - 1) / 2.0
@@ -180,11 +191,10 @@ def _track_level_cached(
     """One LK level sampling the template from a cached region block.
     Returns (new guess, min_eig, ok, (region, r0, c0)) — the region block
     doubles as the next frame's template source."""
-    from pmv_tpu_torch.frontend import capture, lk_kernels
+    from pmv_tpu_torch.frontend import lk_kernels
 
     PAD = _pad_for(win, search)
     Rg = region_size(win, search)
-    next_img = _pad_edge(next_img, PAD)
     half = (win - 1) / 2.0
 
     lim = template_limit(Rg, win)
@@ -195,9 +205,8 @@ def _track_level_cached(
     ok = (raw_r > -0.75) & (raw_r < lim + 0.75) & (raw_c > -0.75) & (raw_c < lim + 0.75)
     guess_p = guess + PAD
     T, Ix, Iy, stats = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-    region, reg_r0, reg_c0 = capture.capture_level(next_img, guess_p, win, search)
-    g = lk_kernels.lk_iterate(
-        region, T, Ix, Iy, stats, guess_p, reg_r0, reg_c0, win, iters
+    g, region, reg_r0, reg_c0 = lk_kernels.lk_iterate(
+        next_img, T, Ix, Iy, stats, guess_p, win, search, iters
     )
     return g - PAD, stats[:, 4], ok, (region, reg_r0, reg_c0)
 
@@ -213,8 +222,7 @@ def capture_blocks(pyr, pts: Tensor, win: int = 32, search: int | None = None) -
     out = []
     for lvl, img in enumerate(pyr):
         s = 2.0 ** lvl
-        img_p = _pad_edge(img, PAD)
-        out.append(capture.capture_level(img_p, pts / s + PAD, win, search))
+        out.append(capture.capture_level(img, pts / s + PAD, win, search))
     return tuple(out)
 
 
@@ -230,7 +238,8 @@ def track_cached(
 ) -> tuple[Tensor, Tensor, tuple]:
     """Track (N, 2) points into ``next_pyr`` with the per-level templates
     taken from ``blocks`` (the region blocks returned by the previous call /
-    capture_blocks), so only ONE block capture per level is made per frame.
+    capture_blocks); each level's iteration kernel captures the one new
+    block the frame needs.
 
     Returns (new_pts, status, new_blocks). Status clears when the point
     leaves the image, drifts outside its cached block, or the normal matrix

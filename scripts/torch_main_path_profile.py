@@ -9,7 +9,9 @@ in one process: a cold run (pays CUDA/cuSOLVER/kernel-build start-up), a warm
 run (the ms/frame to quote; ``--repeat N`` makes N of them, for the spread of
 ms/frame and of the trajectory error from run to run), a run with the stages
 timed, and a run under ``torch.profiler`` whose per-operator totals give the
-device-busy share and the costliest operators.
+device-busy share, the costliest operators, and the device time of the
+hand-written kernels and of the edge-padding kernel by name (``tracker``:
+what the LK tracker's kernels cost on the device per tracked frame).
 ``--deterministic`` sets ``torch.use_deterministic_algorithms(True)`` for
 the whole process (operators that sum with atomics take their ordered
 variants), to tell whether runs of one seed differ because of such operators;
@@ -39,6 +41,11 @@ from pmv_tpu_torch.pipeline import fused  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 
 SHAPE = (370, 1226)
+# Device entries of the trace that belong to the tracker: the hand-written
+# kernels of csrc/ and PyTorch's replication-pad kernel (edge padding of a
+# level before a capture).
+TRACKER_KERNELS = ("capture_kernel", "lk_template_kernel", "lk_iterate_kernel",
+                   "replication_pad")
 
 
 def make_cfg(paths: dict, frames: int) -> VOConfig:
@@ -116,8 +123,15 @@ def profiled(cfg: VOConfig, top: int) -> dict:
     device_us = sum(dev_us(e) for e in ka)
     by_dev = sorted(ka, key=dev_us, reverse=True)[:top]
     by_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    tracker = {}
+    for name in TRACKER_KERNELS + ("min_eig_kernel",):
+        hits = [e for e in ka if name in e.key and not e.key.startswith("aten::")]
+        tracker[name] = {"calls": sum(e.count for e in hits),
+                         "device_ms": sum(dev_us(e) for e in hits) / 1e3}
+    tracker["per_frame_ms"] = sum(
+        tracker[k]["device_ms"] for k in TRACKER_KERNELS) / r["tracked_frames"]
     return {
-        "run": r, "wall_s": wall, "device_busy_s": device_us / 1e6,
+        "run": r, "wall_s": wall, "device_busy_s": device_us / 1e6, "tracker": tracker,
         "device_idle_share": 1.0 - device_us / 1e6 / r["runtime_s"] if device_us else None,
         "n_op_calls": sum(e.count for e in ka),
         "top_device": [{"name": e.key[:80], "calls": e.count, "device_ms": dev_us(e) / 1e3} for e in by_dev],

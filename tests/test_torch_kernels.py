@@ -5,7 +5,12 @@ On the CPU every wrapper (``capture_level``, ``lk_template``, ``lk_iterate``,
 yardstick the CUDA kernel is held against on the card (``chip_smoke.py``).
 Here the same numpy-seeded arrays go through the JAX function — the XLA
 formulation and the Pallas kernel in interpret mode — and through the port.
+
+``capture_level`` and ``lk_iterate`` take the *unpadded* level and positions
+in padded coordinates; the JAX functions take the padded level.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +21,7 @@ from pmv_tpu.frontend import image as j_image
 from pmv_tpu.frontend import lucas_kanade as j_lk
 from pmv_tpu.frontend import pallas_capture, pallas_kernels, pallas_lk
 from pmv_tpu.io import synthetic as j_synthetic
+from pmv_tpu_torch import build
 from pmv_tpu_torch.frontend import capture, image, lk_kernels, min_eig
 from pmv_tpu_torch.frontend import lucas_kanade as lk
 
@@ -109,7 +115,7 @@ class TestCapture:
             ctr = jnp.asarray(pts) / (2.0**lvl) + PAD
             ref, rr, rc = j_lk._capture_region(j_img_p, ctr, win, search)
             pal, pr, pc = pallas_capture.capture_level(j_img_p, ctr, win, search, interpret=True)
-            blk, r0, c0 = capture.capture_level(T(j_img_p), T(ctr), win, search)
+            blk, r0, c0 = capture.capture_level(T(j_img), T(ctr), win, search)
             for a, b in ((r0, rr), (c0, rc), (blk, ref), (r0, pr), (c0, pc), (blk, pal)):
                 assert np.array_equal(a.numpy(), np.asarray(b))
 
@@ -124,7 +130,7 @@ class TestCapture:
         )
         j_img_p = jnp.pad(jnp.asarray(img), PAD, mode="edge")
         ref, rr, rc = j_lk._capture_region(j_img_p, jnp.asarray(pts) + PAD, win, search)
-        blk, r0, c0 = capture.capture_level(T(j_img_p), T(pts) + PAD, win, search)
+        blk, r0, c0 = capture.capture_level(T(img), T(pts) + PAD, win, search)
         assert np.array_equal(r0.numpy(), np.asarray(rr))
         assert np.array_equal(c0.numpy(), np.asarray(rc))
         assert np.array_equal(blk.numpy(), np.asarray(ref))
@@ -138,6 +144,81 @@ class TestCapture:
             assert np.array_equal(gr.numpy(), np.asarray(rr))
             assert np.array_equal(gc.numpy(), np.asarray(rc))
             np.testing.assert_allclose(gb.numpy(), np.asarray(rb), rtol=1e-5, atol=1e-4)
+
+
+# Level shapes of the new-design tests: the default loop's coarsest level
+# (23 x 76: smaller than a region, so every block is clipped and most of it
+# is replicated edge), the next one up, and an odd-sized one.
+LEVEL_SHAPES = [(23, 76), (46, 153), (61, 97)]
+WIN_SEARCH = [(21, 10), (15, 6)]
+
+
+def _border_points(H, W):
+    """Positions on all four borders and corners, just inside, just outside
+    and far outside the level, plus a few in the interior."""
+    us = [-30.0, -0.6, 0.0, 0.4, W / 2.0, W - 1.4, W - 1.0, W - 0.4, W + 30.0]
+    vs = [-30.0, -0.6, 0.0, 0.4, H / 2.0, H - 1.4, H - 1.0, H - 0.4, H + 30.0]
+    return np.array([[u, v] for u in us for v in vs], np.float32)
+
+
+class TestClampedRead:
+    """The kernels read the unpadded level at clamped coordinates in place of
+    a padded copy; ``capture_level_clamped`` is that addressing in PyTorch."""
+
+    @pytest.mark.parametrize("shape", LEVEL_SHAPES)
+    @pytest.mark.parametrize("win,search", WIN_SEARCH)
+    def test_equals_pad_then_slice_at_borders(self, win, search, shape):
+        rng = np.random.default_rng(7)
+        level = T(rng.uniform(0, 255, shape).astype(np.float32))
+        H, W = shape
+        PAD = lk._pad_for(win, search)
+        rnd = np.stack([rng.uniform(-5, W + 4, 40), rng.uniform(-5, H + 4, 40)], -1)
+        center = T(np.concatenate([_border_points(H, W), rnd.astype(np.float32)])) + PAD
+        got = capture.capture_level_clamped(level, center, win, search)
+        want = capture.capture_level_plain(level, center, win, search)
+        Rg = lk.region_size(win, search)
+        assert got[0].shape == (center.shape[0], Rg, Rg)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        # the borders were really hit: some blocks sit at each clip limit
+        r0, c0 = want[1], want[2]
+        assert int(r0.min()) == 0 and int(r0.max()) == H + 2 * PAD - Rg
+        assert int(c0.min()) == 0 and int(c0.max()) == W + 2 * PAD - Rg
+
+    @pytest.mark.parametrize("shape", LEVEL_SHAPES)
+    @pytest.mark.parametrize("win,search", WIN_SEARCH)
+    def test_capture_vs_pallas_at_borders(self, win, search, shape):
+        """``capture_level`` on the unpadded level against the Pallas capture
+        kernel (interpret mode) on the padded one, border features included:
+        blocks and origins bit for bit."""
+        rng = np.random.default_rng(8)
+        img = rng.uniform(0, 255, shape).astype(np.float32)
+        PAD = lk._pad_for(win, search)
+        ctr = _border_points(*shape) + PAD
+        pal, pr, pc = pallas_capture.capture_level(
+            jnp.pad(jnp.asarray(img), PAD, mode="edge"), jnp.asarray(ctr), win, search,
+            interpret=True)
+        blk, r0, c0 = capture.capture_level(T(img), T(ctr), win, search)
+        for a, b in ((r0, pr), (c0, pc), (blk, pal)):
+            assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_ctypes_signatures_match_the_sources():
+    """``build.SIGNATURES`` against the ``extern "C"`` declarations in
+    ``csrc/*.cu``: a mismatch would cut a pointer or shift every argument."""
+    kinds = {"int": build._i, "float": build._f}
+    found = {}
+    for name in build.SOURCES:
+        text = (build.CSRC / name).read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            args = []
+            for a in m.group(2).split(","):
+                a = " ".join(a.split())
+                if "*" in a or a.startswith("cudaStream_t"):
+                    args.append(build._p)
+                else:
+                    args.append(kinds[a.split()[0]])
+            found[m.group(1)] = tuple(args)
+    assert found == build.SIGNATURES
 
 
 # ---------------------------------------------------------------- K2, K3
@@ -188,14 +269,12 @@ class TestTemplate:
         PAD = j_lk._pad_for(win, search)
         N = xy.shape[0]
         half = (win - 1) / 2.0
-        img0_p = np.pad(imgs[0], PAD, mode="edge")
-        img1_p = np.pad(imgs[1], PAD, mode="edge")
-        blk, br0, bc0 = capture.capture_level(T(img0_p), T(xy) + PAD, win, search)
-        region, rr0, rc0 = capture.capture_level(T(img1_p), T(xy) + PAD, win, search)
+        blk, br0, bc0 = capture.capture_level(T(imgs[0]), T(xy) + PAD, win, search)
         raw_r = T(xy)[:, 1] + PAD - half - 1.0 - br0
         raw_c = T(xy)[:, 0] + PAD - half - 1.0 - bc0
         Tt, Ix, Iy, st = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-        g = lk_kernels.lk_iterate(region, Tt, Ix, Iy, st, T(xy) + PAD, rr0, rc0, win, iters)
+        g, region, rr0, rc0 = lk_kernels.lk_iterate(
+            T(imgs[1]), Tt, Ix, Iy, st, T(xy) + PAD, win, search, iters)
 
         N_pad = -(-N // 128) * 128
         scal = np.zeros((8, N_pad), np.float32)
@@ -216,6 +295,73 @@ class TestTemplate:
         np.testing.assert_allclose(st[:, 4].numpy()[ok], out[2, :N][ok], rtol=1e-4)
         np.testing.assert_allclose(g[:, 1].numpy()[ok], out[0, :N][ok], atol=5e-3)
         np.testing.assert_allclose(g[:, 0].numpy()[ok], out[1, :N][ok], atol=5e-3)
+
+
+def _wave_images(shape, shift, seed):
+    """Two smooth textured float32 images of ``shape`` (sums of seeded random
+    sinusoids, 0-255), the second the first moved by ``shift`` = (du, dv)."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    k = rng.uniform(0.15, 0.7, (24, 2)) * rng.choice([-1.0, 1.0], (24, 2))
+    ph = rng.uniform(0, 2 * np.pi, 24)
+    amp = rng.uniform(0.5, 1.0, 24)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+
+    def render(dx, dy):
+        z = sum(a * np.sin(kx * (xx - dx) + ky * (yy - dy) + p)
+                for a, (kx, ky), p in zip(amp, k, ph))
+        return (127.5 + 127.5 * z / np.abs(z).max()).astype(np.float32)
+
+    return render(0.0, 0.0), render(*shift)
+
+
+class TestIterateCaptures:
+    @pytest.mark.parametrize("shape", LEVEL_SHAPES)
+    @pytest.mark.parametrize("win,search", WIN_SEARCH)
+    def test_level_vs_pallas_track_level(self, win, search, shape):
+        """``lk_template`` + ``lk_iterate`` of one level against
+        ``pallas_lk._track_level_cached`` in interpret mode, border features
+        included. The region handed on is pure extraction: bit-equal after
+        the (Rg, Rg, N) -> (N, Rg, Rg) transpose, origins equal. Positions:
+        1e-3 px on textured slots (same taps and weights; the two differ in
+        the association of the blend and in summation order)."""
+        H, W = shape
+        iters = 10
+        img0, img1 = _wave_images(shape, (0.8, -0.6), seed=11)
+        rng = np.random.default_rng(12)
+        inner = np.stack([rng.uniform(2, W - 3, 60), rng.uniform(2, H - 3, 60)], -1)
+        pts = np.concatenate([_border_points(H, W), inner.astype(np.float32)])
+        guess = (pts + rng.uniform(-0.5, 0.5, pts.shape)).astype(np.float32)
+        PAD = lk._pad_for(win, search)
+        half = (win - 1) / 2.0
+
+        blk, br0, bc0 = capture.capture_level(T(img0), T(pts) + PAD, win, search)
+        raw_r = T(pts)[:, 1] + PAD - half - 1.0 - br0
+        raw_c = T(pts)[:, 0] + PAD - half - 1.0 - bc0
+        Tt, Ix, Iy, st = lk_kernels.lk_template(blk, raw_r, raw_c, win)
+        g, region, rr0, rc0 = lk_kernels.lk_iterate(
+            T(img1), Tt, Ix, Iy, st, T(guess) + PAD, win, search, iters)
+
+        ref_g, ref_me, _, (ref_region_t, ref_r0, ref_c0) = pallas_lk._track_level_cached(
+            jnp.transpose(jnp.asarray(blk.numpy()), (1, 2, 0)),
+            jnp.asarray(br0.numpy()), jnp.asarray(bc0.numpy()),
+            jnp.asarray(img1), jnp.asarray(pts), jnp.asarray(guess),
+            win, iters, search, True)
+
+        assert np.array_equal(rr0.numpy(), np.asarray(ref_r0))
+        assert np.array_equal(rc0.numpy(), np.asarray(ref_c0))
+        assert np.array_equal(region.numpy(), np.transpose(np.asarray(ref_region_t), (2, 0, 1)))
+        ref_me = np.asarray(ref_me)
+        np.testing.assert_allclose(st[:, 4].numpy(), ref_me, rtol=1e-4, atol=1e-4)
+        ok = (ref_me > 1.0) & np.isfinite(np.asarray(ref_g)).all(axis=1)
+        assert ok.sum() >= 40
+        np.testing.assert_allclose((g - PAD).numpy()[ok], np.asarray(ref_g)[ok], atol=1e-3)
+        # the track found the shift where the whole window lies in the level
+        m = win // 2 + 2
+        seen = ok & (pts[:, 0] > m) & (pts[:, 0] < W - 1 - m) & (pts[:, 1] > m) & (pts[:, 1] < H - 1 - m)
+        if seen.any():
+            np.testing.assert_allclose(
+                (g - PAD).numpy()[seen] - pts[seen], np.broadcast_to([0.8, -0.6], (seen.sum(), 2)), atol=0.1)
 
 
 class TestTrackCached:
@@ -259,11 +405,13 @@ class TestTrackCached:
         imgs, xy, _ = _scene(n_frames=2)
         win, search = 9, 4
         PAD = lk._pad_for(win, search)
-        img_p = image._pad_edge(T(imgs[1]), PAD)
+        level = T(imgs[1])
         center = T(xy) + PAD
-        got = capture.capture_level(img_p, center, win, search)
-        want = capture.capture_level_plain(img_p, center, win, search)
+        got = capture.capture_level(level, center, win, search)
+        want = capture.capture_level_plain(level, center, win, search)
+        padded = lk._capture_region(image._pad_edge(level, PAD), center, win, search)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(got, padded))
         blk, r0, c0 = got
         half = (win - 1) / 2.0
         raw_r = center[:, 1] - half - 1.0 - r0
@@ -272,8 +420,12 @@ class TestTrackCached:
         want_t = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
         assert all(torch.equal(a, b) for a, b in zip(got_t, want_t))
         T_, Ix, Iy, st = got_t
-        g = lk_kernels.lk_iterate(blk, T_, Ix, Iy, st, center, r0, c0, win, 3)
-        gp = lk_kernels.lk_iterate_plain(blk, r0, c0, T_, Ix, Iy, st, center, win, 3)
-        assert torch.equal(g, gp)
+        got_i = lk_kernels.lk_iterate(level, T_, Ix, Iy, st, center, win, search, 3)
+        want_i = lk_kernels.lk_iterate_plain(level, T_, Ix, Iy, st, center, win, search, 3)
+        assert all(torch.equal(a, b) for a, b in zip(got_i, want_i))
+        # the region it hands on is the capture kernel's block, and its loop
+        # is the plain loop on that block
+        assert all(torch.equal(a, b) for a, b in zip(got_i[1:], got))
+        assert torch.equal(got_i[0], lk._iterate(blk, r0, c0, T_, Ix, Iy, st, center, win, 3))
         assert capture.capture_level.launches == 0
         assert lk_kernels.lk_template.launches == 0 and lk_kernels.lk_iterate.launches == 0
