@@ -9,13 +9,19 @@ Phases, each printing one JSON line as it ends:
 1. device   — card name and power limit as ``nvidia-smi`` gives them;
 2. build    — compile ``pmv_tpu_torch/csrc/*.cu`` (set-up time);
 3. kernels  — every hand-written kernel against its plain PyTorch version on
-               the card, at the shapes the main path gives it, with its time,
-               the plain version's time and the card's bound for the same work;
+               the card, at the shapes the main path gives it (the LK blocks
+               captured off their features, so that the template's offset
+               clips and ``ok`` clears on some slots), with its time,
+               the plain version's time and the card's bound for the same work
+               (the LK level kernel at every block size built, and its
+               template stage on its own);
 4. main path — a synthetic KITTI-sized corridor through
                ``OdometryPipeline(cfg, device="cuda").run()`` at the default
                configuration's full size, with the kernels' launch counts
-               (a 14-frame run of the same pipeline goes first, untimed and
-               uncounted, so that ms/frame is not the libraries' start-up);
+               (a run of the same frames goes first, untimed and uncounted,
+               so that ms/frame is not the libraries' start-up; every level
+               it tracks is also held to the plain version on the same
+               inputs);
 5. the ``kernels`` summary line, the card line, and the final ``ok`` line.
 
 Any failure raises and the script exits non-zero; nothing here runs on the
@@ -52,7 +58,6 @@ DEV = torch.device("cuda")
 SHAPE = (370, 1226)  # KITTI odometry grayscale frame
 N_FEAT = 512
 LEVELS = 4  # pyramid has LEVELS + 1 images
-WARMUP_FRAMES = 14  # untimed run before the main path: bootstrap, PnP and BA frames
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the float32 rate outside the tensor cores. Bounds are stated against these,
@@ -62,14 +67,13 @@ PEAK_F32_FLOPS = 67e12
 
 WRAPPERS = {
     "capture_level": capture.capture_level,
-    "lk_template": lk_kernels.lk_template,
-    "lk_iterate": lk_kernels.lk_iterate,
+    "lk_track_level": lk_kernels.lk_track_level,
     "min_eig_response": min_eig.min_eig_response,
 }
 META = {
     "capture_level": ("pmv_tpu_torch/csrc/capture.cu", "pmv_tpu/frontend/pallas_capture.py:104"),
-    "lk_template": ("pmv_tpu_torch/csrc/lk.cu", "pmv_tpu/frontend/pallas_lk.py:303"),
-    "lk_iterate": ("pmv_tpu_torch/csrc/lk.cu", "pmv_tpu/frontend/pallas_lk.py:311"),
+    "lk_track_level": ("pmv_tpu_torch/csrc/lk.cu",
+                       "pmv_tpu/frontend/pallas_lk.py:303 and pmv_tpu/frontend/pallas_lk.py:311"),
     "min_eig_response": ("pmv_tpu_torch/csrc/min_eig.cu", "pmv_tpu/frontend/pallas_kernels.py:103"),
 }
 
@@ -199,107 +203,155 @@ def check_capture(pyr1, pts, win: int):
     }
 
 
-def level_templates(pyr0, pts, lvl: int, win: int, search: int):
-    """Templates of level ``lvl`` as a tracked frame has them: blocks captured
-    from the previous frame's level at the features, then ``lk_template``.
-    Returns (blk, raw_r, raw_c, (T, Ix, Iy, stats))."""
+def level_inputs(pyr0, pyr1, pts, lvl: int, win: int, search: int, drift_seed: int | None = None):
+    """Arguments of ``lk_track_level`` at level ``lvl``: blocks captured from
+    the previous frame's level, this frame's level, the features' positions
+    and, as the starting guess, the same positions.
+
+    With ``drift_seed`` the blocks are captured up to 3 px further off the
+    features than a template window can lie from its block's centre, as the
+    blocks of a tracked frame are (they come from the previous frame's
+    guess): the window's offset then spans its range, clips on some slots
+    and clears ``ok`` on some. Without it every block is centred on its
+    feature (the timings use that)."""
+    PAD = lk._pad_for(win, search)
+    p = (pts / 2.0**lvl).contiguous()
+    at = p
+    if drift_seed is not None:
+        reach = (lk.region_size(win, search) - win) // 2 + 3
+        rng = np.random.default_rng(drift_seed + lvl)
+        at = p + torch.from_numpy(
+            (rng.uniform(-1.0, 1.0, tuple(p.shape)) * reach).astype(np.float32)).to(DEV)
+    blk, br0, bc0 = capture.capture_level(pyr0[lvl], at + PAD, win, search)
+    return blk, br0, bc0, pyr1[lvl], p, p.clone()
+
+
+def hold_level(where: str, got, want) -> tuple[torch.Tensor, float]:
+    """One level through the kernel (``got``) against ``lk_track_level_plain``
+    on the same inputs (``want``): raises unless the region and its origins
+    are bit-exact, ``ok`` is equal on every slot and ``min_eig`` agrees to
+    1e-4 relative on textured slots. Returns the position errors in px of the
+    textured slots whose ``ok`` is set (the tracker drops the others), for
+    the caller to hold to its bar, and the largest relative ``min_eig``
+    error."""
+    g, me, ok, region, r0, c0 = got
+    gp, me_p, ok_p, region_p, r0_p, c0_p = want
+    if not (torch.equal(r0, r0_p) and torch.equal(c0, c0_p)):
+        raise AssertionError(f"{where}: origins differ")
+    if not torch.equal(region, region_p):
+        raise AssertionError(f"{where}: region not bit-exact")
+    if not torch.equal(ok, ok_p):
+        raise AssertionError(f"{where}: ok differs on {int((ok != ok_p).sum())} slots")
+    textured = me_p > 1e-2
+    e_me = 0.0
+    if bool(textured.any()):
+        e_me = float(((me - me_p).abs() / me_p.abs().clamp(min=1e-6))[textured].max())
+    if not e_me <= 1e-4:
+        raise AssertionError(f"{where}: min_eig rel err {e_me}")
+    seen = textured & ok_p & torch.isfinite(gp).all(dim=1)
+    return (g - gp).abs().amax(dim=1)[seen], e_me
+
+
+def check_lk_template(pyr0, pyr1, pts, win: int):
+    """The level kernel's template stage at level 0 on drifted blocks: T, Ix,
+    Iy and the five statistics, which the kernel writes out only for this
+    check, against ``lk_template_plain`` on the offsets computed here as the
+    tracker's plain version computes them. Some offsets must clip at either
+    end of their range, or the check proves nothing about the clip."""
+    search = lk._resolve_search(win, None)
     PAD = lk._pad_for(win, search)
     half = (win - 1) / 2.0
-    p = pts / 2.0**lvl
-    blk, br0, bc0 = capture.capture_level(pyr0[lvl], (p + PAD).contiguous(), win, search)
-    raw_r = (p[:, 1] + PAD - half - 1.0 - br0).contiguous()
-    raw_c = (p[:, 0] + PAD - half - 1.0 - bc0).contiguous()
-    return blk, raw_r, raw_c, lk_kernels.lk_template(blk, raw_r, raw_c, win)
-
-
-def check_lk_template(pyr0, pts, win: int, timed: bool):
-    """K2 called directly at level 0 against its plain version."""
-    search = lk._resolve_search(win, None)
-    N = pts.shape[0]
-    blk, raw_r, raw_c, (T, Ix, Iy, st) = level_templates(pyr0, pts, 0, win, search)
+    t_lim = lk.template_limit(lk.region_size(win, search), win)
+    blk, br0, bc0, level, p, guess = level_inputs(pyr0, pyr1, pts, 0, win, search, drift_seed=1)
+    out = lk_kernels.lk_track_level(blk, br0, bc0, level, p, guess, win, search, 0,
+                                    return_template=True)
+    g, (T, Ix, Iy, st) = out[0], out[6:]
+    raw_r = p[:, 1] + PAD - half - 1.0 - br0
+    raw_c = p[:, 0] + PAD - half - 1.0 - bc0
+    raw = torch.stack([raw_r, raw_c])
+    n_low, n_high = int((raw < 0).any(dim=0).sum()), int((raw > t_lim).any(dim=0).sum())
+    if n_low == 0 or n_high == 0:
+        raise AssertionError(f"lk_track_level template win={win}: no offset clips "
+                             f"(below 0: {n_low} slots, above the limit: {n_high})")
     Tp, Ixp, Iyp, stp = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
     torch.cuda.synchronize()
+    if not torch.equal(g, guess + PAD - PAD):
+        raise AssertionError(f"lk_track_level win={win}: 0 iterations moved the guess")
     err_t = max(float((a - b).abs().max()) for a, b in ((T, Tp), (Ix, Ixp), (Iy, Iyp)))
     # T/Ix/Iy take no reduction: same arithmetic, so 1e-4 on 0-255 images is
     # generous. The G sums differ by summation order: rtol 1e-4.
     if err_t > 1e-4:
-        raise AssertionError(f"lk_template win={win}: T/Ix/Iy differ by {err_t}")
+        raise AssertionError(f"lk_track_level template win={win}: T/Ix/Iy differ by {err_t}")
     if not torch.allclose(st[:, :3], stp[:, :3], rtol=1e-4, atol=1e-2):
-        raise AssertionError(f"lk_template win={win}: G sums differ")
+        raise AssertionError(f"lk_track_level template win={win}: G sums differ")
     textured = stp[:, 4] > 1e-2
     rel_me = float(((st[:, 4] - stp[:, 4]).abs() / stp[:, 4].abs().clamp(min=1e-6))[textured].max())
     if rel_me > 1e-4:
-        raise AssertionError(f"lk_template win={win}: min_eig rel err {rel_me}")
-    out = {"max_abs_err": err_t, "min_eig_rel_err": rel_me}
-    if timed:
-        ww = win * win
-        # the (win+2)^2 bilinear window touches (win+3)^2 floats of each block
-        b, by = bound(
-            N * ((win + 3) ** 2 + 2) * 4 + N * (3 * ww + 5) * 4,
-            N * ((win + 2) ** 2 * 9 + ww * 10),
-        )
-        out.update(
-            ms=time_ms(lambda: lk_kernels.lk_template(blk, raw_r, raw_c, win)),
-            plain_ms=time_ms(lambda: lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)),
-            library_ms=None, bound_ms=b, bound_by=by,
-        )
-    return out
+        raise AssertionError(f"lk_track_level template win={win}: min_eig rel err {rel_me}")
+    if not torch.equal(st[:, 4], out[1]):
+        raise AssertionError(f"lk_track_level win={win}: min_eig is not the statistics' fifth")
+    return {"max_abs_err": err_t, "min_eig_rel_err": rel_me,
+            "slots_clipped_low": n_low, "slots_clipped_high": n_high}
 
 
-def check_lk_iterate(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
-    """K3 on all five level shapes, on the template kernel's outputs: the
-    region and origins it hands on bit-exact against ``capture_level_plain``,
-    positions within 1e-3 px of ``lk_iterate_plain`` on textured slots, two
-    calls on the same inputs equal bit for bit, for every block size built.
-    Times (kernel at each block size, plain, bound) are means over the five
-    level shapes; the bound counts each level pixel under a region once."""
+def check_lk_track_level(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
+    """The level kernel on all five level shapes against
+    ``lk_track_level_plain`` (``hold_level``), for every block size built, on
+    drifted blocks: at every level some slots must clear ``ok`` and some keep
+    it. Two calls on the same inputs must be equal bit for bit. Times (kernel
+    at each block size, plain, bound) are taken on centred blocks and are
+    means over the five level shapes; the bound counts each level pixel under
+    a region once."""
     search = lk._resolve_search(win, None)
-    PAD = lk._pad_for(win, search)
     Rg = lk.region_size(win, search)
     N, ww = pts.shape[0], win * win
-    sizes = lk_kernels.ITERATE_THREADS_BUILT
-    err_g = 0.0
+    sizes = lk_kernels.LEVEL_THREADS_BUILT
+    err_g = err_me = 0.0
+    ok_slots = []
     t_k = {nt: [] for nt in sizes}
     t_w, t_p, t_bound, by_iters = [], [], [], {}
     for lvl, level in enumerate(pyr1):
-        _, _, _, (T, Ix, Iy, st) = level_templates(pyr0, pts, lvl, win, search)
-        guess = (pts / 2.0**lvl + PAD).contiguous()
-        args = (level, T, Ix, Iy, st, guess, win, search, iters)
-        gp, region_p, r0_p, c0_p = lk_kernels.lk_iterate_plain(*args)
-        ok = (st[:, 4] > 1e-2) & torch.isfinite(gp).all(dim=1)
+        drifted = (*level_inputs(pyr0, pyr1, pts, lvl, win, search, drift_seed=1), win, search, iters)
+        args = (*level_inputs(pyr0, pyr1, pts, lvl, win, search), win, search, iters)
+        want = lk_kernels.lk_track_level_plain(*drifted)
+        n_ok = int(want[2].sum())
+        if not 0 < n_ok < N:
+            raise AssertionError(f"lk_track_level win={win} level {lvl}: ok is set on {n_ok} of "
+                                 f"{N} slots, the check needs both kinds")
+        ok_slots.append(n_ok)
         for nt in sizes:
-            g, region, r0, c0 = lk_kernels.lk_iterate(*args, threads=nt)
-            again = lk_kernels.lk_iterate(*args, threads=nt)
+            got = lk_kernels.lk_track_level(*drifted, threads=nt)
+            again = lk_kernels.lk_track_level(*drifted, threads=nt)
             torch.cuda.synchronize()
-            where = f"lk_iterate win={win} level {lvl} threads={nt}"
-            if not (torch.equal(r0, r0_p) and torch.equal(c0, c0_p)):
-                raise AssertionError(f"{where}: origins differ")
-            if not torch.equal(region, region_p):
-                raise AssertionError(f"{where}: region not bit-exact")
-            if not all(torch.equal(a, b) for a, b in zip((g, region, r0, c0), again)):
-                raise AssertionError(f"{where}: two calls on the same inputs differ")
-            e = float((g - gp).abs()[ok].max())
+            where = f"lk_track_level win={win} level {lvl} threads={nt}"
+            errs, e_me = hold_level(where, got, want)
+            e = float(errs.max())
             if not e <= 1e-3:
                 raise AssertionError(f"{where}: positions differ by {e} px")
-            if nt == lk_kernels.ITERATE_THREADS:
-                err_g = max(err_g, e)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{where}: two calls on the same inputs differ")
+            if nt == lk_kernels.LEVEL_THREADS:
+                err_g, err_me = max(err_g, e), max(err_me, e_me)
             if timed:
-                t_k[nt].append(time_ms(lambda: lk_kernels.lk_iterate(*args, threads=nt)))
+                t_k[nt].append(time_ms(lambda: lk_kernels.lk_track_level(*args, threads=nt)))
         if timed:
-            t_w.append(time_ms(lambda: lk_kernels.lk_iterate(*args), calls=10))
+            t_w.append(time_ms(lambda: lk_kernels.lk_track_level(*args), calls=10))
             if lvl == 0:
-                # capture-and-hand-on alone (0 iterations) and what an iteration adds
-                by_iters = {str(n): time_ms(lambda: lk_kernels.lk_iterate(*args[:-1], n), calls=10)
+                # template, capture and hand-on alone (0 iterations) and what an iteration adds
+                by_iters = {str(n): time_ms(lambda: lk_kernels.lk_track_level(*args[:-1], n), calls=10)
                             for n in (0, iters, 2 * iters)}
-            t_p.append(time_ms(lambda: lk_kernels.lk_iterate_plain(*args), reps=5, warmup=1))
+            t_p.append(time_ms(lambda: lk_kernels.lk_track_level_plain(*args), reps=5, warmup=1))
+            # read: the level's pixels under the regions once, the (win+3)^2
+            # patch of each cached block, pts, guess and the block's origin;
+            # written: the region, its origin, position, min_eig, ok
             t_bound.append(bound(
-                (min(level.numel(), N * Rg * Rg) + N * (3 * ww + 5 + 2)) * 4
-                + N * (Rg * Rg + 2 + 2) * 4,
-                N * iters * ww * 13,
+                (min(level.numel(), N * Rg * Rg) + N * ((win + 3) ** 2 + 6)) * 4
+                + N * (Rg * Rg + 5) * 4 + N,
+                N * ((win + 2) ** 2 * 9 + ww * 10 + iters * ww * 13),
             ))
-    out = {"max_abs_err": err_g}
+    out = {"max_abs_err": err_g, "min_eig_rel_err": err_me, "ok_slots_by_level": ok_slots}
     if timed:
-        nt = lk_kernels.ITERATE_THREADS
+        nt = lk_kernels.LEVEL_THREADS
         out.update(
             ms=statistics.mean(t_k[nt]), warm_ms=statistics.mean(t_w),
             plain_ms=statistics.mean(t_p),
@@ -309,17 +361,19 @@ def check_lk_iterate(pyr0, pyr1, pts, win: int, iters: int, timed: bool):
             ms_by_threads={str(k): statistics.mean(v) for k, v in t_k.items()},
             level0_ms_by_threads={str(k): v[0] for k, v in t_k.items()},
             level0_bound_ms=t_bound[0][0], level0_warm_ms_by_iters=by_iters,
-            bar="region and origins bit-exact, positions 1e-3 px, two calls equal, on all "
-                "five level shapes at every block size; times are means over the five",
+            bar="on blocks captured up to 3 px beyond the template's reach: region, origins and ok "
+                "exact (ok set on some slots and clear on some at every level), min_eig 1e-4 "
+                "relative, positions 1e-3 px on slots with ok, two calls equal, on all five level "
+                "shapes at every block size; times on centred blocks, means over the five",
         )
     return out
 
 
-def track_cached_plain(pyr0, pyr1, pts, valid, win: int, iters: int):
+def track_cached_plain(pyr0, pyr1, pts, at, valid, win: int, iters: int):
     """The 5-level cached track of ``lk.track_cached`` (blocks captured from
-    ``pyr0`` at ``pts``, then tracked into ``pyr1``) built from the plain
-    versions only, on whatever device the tensors lie: the yardstick for the
-    same track through the kernels."""
+    ``pyr0`` around ``at``, then ``pts`` tracked into ``pyr1``) built from
+    the plain versions only, on whatever device the tensors lie: the
+    yardstick for the same track through the kernels."""
     search = lk._resolve_search(win, None)
     PAD = lk._pad_for(win, search)
     lim = lk.template_limit(lk.region_size(win, search), win)
@@ -330,7 +384,7 @@ def track_cached_plain(pyr0, pyr1, pts, valid, win: int, iters: int):
     ok_all = torch.ones_like(valid)
     for lvl in range(top, -1, -1):
         p = pts / 2.0**lvl
-        blk, br0, bc0 = capture.capture_level_plain(pyr0[lvl], p + PAD, win, search)
+        blk, br0, bc0 = capture.capture_level_plain(pyr0[lvl], at / 2.0**lvl + PAD, win, search)
         raw_r = p[:, 1] + PAD - half - 1.0 - br0
         raw_c = p[:, 0] + PAD - half - 1.0 - bc0
         ok_all &= (raw_r > -0.75) & (raw_r < lim + 0.75) & (raw_c > -0.75) & (raw_c < lim + 0.75)
@@ -346,15 +400,26 @@ def track_cached_plain(pyr0, pyr1, pts, valid, win: int, iters: int):
 
 def check_track(pyr0, pyr1, pts, valid, win: int, iters: int):
     """Full 5-level track_cached through the kernels against the plain
-    versions on the card: positions 1e-3 px, min_eig-driven status equal on
-    >= 99.5 % of slots. ``valid`` marks the slots that hold a detected corner,
-    as on the main path."""
-    blocks = lk.capture_blocks(pyr0, pts, win=win)
+    versions on the card: positions 1e-3 px, status equal on >= 99.5 % of
+    slots. ``valid`` marks the slots that hold a detected corner, as on the
+    main path. The blocks are captured off the features (seeded, up to 3 px
+    beyond the template's reach at level 0), so that some tracks are dropped
+    for having left their block."""
+    search = lk._resolve_search(win, None)
+    reach = (lk.region_size(win, search) - win) // 2 + 3
+    rng = np.random.default_rng(2)
+    at = pts + torch.from_numpy(
+        (rng.uniform(-1.0, 1.0, tuple(pts.shape)) * reach).astype(np.float32)).to(DEV)
+    blocks = lk.capture_blocks(pyr0, at, win=win)
     p_k, s_k, _ = lk.track_cached(blocks, pyr1, pts, valid, win=win, iters=iters)
-    p_p, s_p = track_cached_plain(pyr0, pyr1, pts, valid, win, iters)
+    p_p, s_p = track_cached_plain(pyr0, pyr1, pts, at, valid, win, iters)
     torch.cuda.synchronize()
     both = s_k & s_p
-    err = float((p_k - p_p).abs()[both].max()) if bool(both.any()) else float("nan")
+    dropped = int((valid & ~s_p).sum())
+    if not bool(both.any()) or dropped == 0:
+        raise AssertionError(f"track_cached win={win}: {int(both.sum())} tracked, {dropped} "
+                             f"dropped: the check needs both kinds")
+    err = float((p_k - p_p).abs()[both].max())
     agree = float((s_k == s_p).float().mean())
     if not (err <= 1e-3):
         raise AssertionError(f"track_cached win={win}: positions differ by {err} px")
@@ -362,7 +427,7 @@ def check_track(pyr0, pyr1, pts, valid, win: int, iters: int):
         raise AssertionError(f"track_cached win={win}: status agrees on {agree:.4f}")
     moved = float((p_p - pts).norm(dim=1)[both].mean())
     return {"win": win, "pos_max_abs_err_px": err, "status_agree": agree,
-            "tracked": int(both.sum()), "mean_flow_px": moved}
+            "tracked": int(both.sum()), "dropped": dropped, "mean_flow_px": moved}
 
 
 def check_min_eig(img0):
@@ -370,13 +435,15 @@ def check_min_eig(img0):
     rp = min_eig.min_eig_response_plain(img0)
     torch.cuda.synchronize()
     err = float((r - rp).abs().max())
+    differ = int((r != rp).sum())
     if not torch.allclose(r, rp, rtol=1e-5, atol=1e-3):
         raise AssertionError(f"min_eig_response differs from plain by {err}")
     H, W = img0.shape
     b, by = bound(2 * H * W * 4, H * W * 60)
     return {
-        "max_abs_err": err,
+        "max_abs_err": err, "pixels_not_bit_equal": differ,
         "ms": time_ms(lambda: min_eig.min_eig_response(img0)),
+        "warm_ms": time_ms(lambda: min_eig.min_eig_response(img0), calls=10),
         "plain_ms": time_ms(lambda: min_eig.min_eig_response_plain(img0)),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "bar": "rtol 1e-5, atol 1e-3 on a 0-255 image, whole image with border",
@@ -387,12 +454,12 @@ def phase_kernels() -> dict:
     img0, pyr0, pyr1, pts, corner = kernel_inputs()
     res = {
         "capture_level": check_capture(pyr1, pts, win=21),
-        "lk_template": check_lk_template(pyr0, pts, win=21, timed=True),
-        "lk_iterate": check_lk_iterate(pyr0, pyr1, pts, win=21, iters=10, timed=True),
+        "lk_track_level": check_lk_track_level(pyr0, pyr1, pts, win=21, iters=10, timed=True),
     }
+    template = check_lk_template(pyr0, pyr1, pts, win=21)
     parity = {
-        "lk_template": check_lk_template(pyr0, pts, win=32, timed=False),
-        "lk_iterate": check_lk_iterate(pyr0, pyr1, pts, win=32, iters=10, timed=False),
+        "template_stage": check_lk_template(pyr0, pyr1, pts, win=32),
+        "lk_track_level": check_lk_track_level(pyr0, pyr1, pts, win=32, iters=10, timed=False),
     }
     res["min_eig_response"] = check_min_eig(img0)
     tracks = [check_track(pyr0, pyr1, pts, corner, 21, 10),
@@ -403,7 +470,8 @@ def phase_kernels() -> dict:
           "events_only_ms": events_only,
           "timing": "ms: median of 20 single calls by CUDA events, L2 flushed and the stream kept busy "
                     "before each; warm_ms: the same around 10 calls back to back, per call",
-          "results": res, "win32_Rg84": parity, "track_cached": tracks})
+          "results": res, "template_stage": template, "win32_Rg84": parity,
+          "track_cached": tracks})
     return res
 
 
@@ -417,6 +485,47 @@ def path_length(pipe) -> float:
     off = pipe.init_offset
     n = min(len(pipe.t), len(pipe.gt_t) - off)
     return float(np.sum(np.linalg.norm(np.diff(pipe.gt_t[off : off + n], axis=0), axis=1)))
+
+
+class LevelsOnThePath:
+    """While active, every level that ``lk.track_cached`` tracks also goes
+    through ``lk_track_level_plain`` on the same inputs — the blocks, guesses
+    and positions of a real run, where blocks lie off their features by the
+    previous frame's flow and some slots hold no feature at all — and is held
+    to it (``hold_level``). The tracker goes on with the kernel's results.
+
+    Positions are counted, not held one by one: a real run has tracks that do
+    not converge (weak texture, a point that left the image), whose updates
+    jump by pixels from one iteration to the next and carry the last bit of
+    the first sums (the kernel's order of summation differs from the plain
+    version's) to a pixel within ten iterations. ``beyond`` counts the slots
+    further than 1e-3 px from the plain version; the caller holds their share."""
+
+    def __enter__(self):
+        self.levels = self.slots = self.beyond = self.ok_clear = 0
+        self.pos_err = self.min_eig_rel_err = 0.0
+        self.orig = lk._track_level_cached
+        lk._track_level_cached = self.level
+        return self
+
+    def __exit__(self, *exc):
+        lk._track_level_cached = self.orig
+
+    def level(self, blk, br0, bc0, next_img, pts_level, guess, win, iters, search):
+        out = g, me, ok, (region, r0, c0) = self.orig(
+            blk, br0, bc0, next_img, pts_level, guess, win, iters, search)
+        want = lk_kernels.lk_track_level_plain(
+            blk, br0, bc0, next_img, pts_level, guess, win, search, iters)
+        errs, e_me = hold_level(f"main path, tracked level {self.levels} {tuple(next_img.shape)}",
+                                (g, me, ok, region, r0, c0), want)
+        self.levels += 1
+        self.ok_clear += int((~ok).sum())
+        self.slots += errs.numel()
+        self.beyond += int((errs > 1e-3).sum())
+        if errs.numel():
+            self.pos_err = max(self.pos_err, float(errs.max()))
+        self.min_eig_rel_err = max(self.min_eig_rel_err, e_me)
+        return out
 
 
 def phase_main(n_frames: int) -> dict:
@@ -440,12 +549,28 @@ def phase_main(n_frames: int) -> dict:
                 error_path=str(Path(tmp) / "errors.txt"),
             )
 
-        # A short run first, so that the timed run does not pay for the start
-        # of cuBLAS/cuSOLVER and the first trace of every operator.
+        # A run of the same frames first, so that the timed run does not pay
+        # for the start of cuBLAS/cuSOLVER and the first trace of every
+        # operator. It also holds every level it tracks to the plain version.
         t0 = time.perf_counter()
-        OdometryPipeline(make_cfg(WARMUP_FRAMES), device="cuda").run()
+        with LevelsOnThePath() as held:
+            first = OdometryPipeline(make_cfg(n_frames), device="cuda")
+            first.run()
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
+        if held.levels != (first.cfg.lk_levels + 1) * len(first.frame_stats):
+            raise AssertionError(f"first run: {held.levels} levels held to the plain version in "
+                                 f"{len(first.frame_stats)} tracked frames")
+        emit({"phase": "levels_on_the_path", "levels": held.levels, "slots_ok_clear": held.ok_clear,
+              "slots_held": held.slots, "slots_beyond_1e-3_px": held.beyond,
+              "pos_max_abs_err_px": held.pos_err, "min_eig_rel_err": held.min_eig_rel_err,
+              "ate_rebased_m": cli.rebased_ate(first),
+              "bar": "every tracked level of a full run against lk_track_level_plain on the same "
+                     "inputs: region, origins and ok exact on every slot, min_eig 1e-4 relative, "
+                     "positions within 1e-3 px on at least 99.9 % of the textured slots with ok"})
+        if not held.beyond <= 1e-3 * held.slots:
+            raise AssertionError(f"first run: {held.beyond} of {held.slots} slots lie more than "
+                                 f"1e-3 px from the plain version")
 
         cfg = make_cfg(n_frames)
         pipe = OdometryPipeline(cfg, device="cuda")
@@ -469,7 +594,7 @@ def phase_main(n_frames: int) -> dict:
                    "bundle_size": cfg.bundle_size, "ba_iters": cfg.max_iterations,
                    "chunk_frames": cfg.chunk_frames},
         "dataset_seconds": data_s,
-        "warmup_frames": WARMUP_FRAMES, "warmup_seconds": warmup_s,
+        "warmup_frames": n_frames, "warmup_seconds": warmup_s,
         "frames": result["frames"],
         "tracked_frames": len(stats),
         "runtime_s": result["runtime"],
@@ -482,11 +607,13 @@ def phase_main(n_frames: int) -> dict:
     emit(line)
     if any(v <= 0 for v in launches.values()):
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
-    # A tracked frame is two launches per pyramid image (template, iterate);
-    # the capture kernel runs only at init and after a reseed.
+    # A tracked frame is one launch per pyramid image; the capture kernel
+    # runs only at init and after a reseed, the corner response on the init
+    # frames and on a reseed.
     n_img = cfg.lk_levels + 1
-    want = {"lk_template": n_img * len(stats), "lk_iterate": n_img * len(stats),
-            "capture_level": n_img * (1 + n_reseed)}
+    want = {"lk_track_level": n_img * len(stats),
+            "capture_level": n_img * (1 + n_reseed),
+            "min_eig_response": cfg.init_frames + n_reseed}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"launch counts {got} are not {want}")

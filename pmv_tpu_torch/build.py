@@ -41,9 +41,8 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # takes the stream last.
 SIGNATURES = {
     "pmv_capture_level": (_p, _i, _i, _i, _p, _i, _i, _i, _p, _p, _p, _p),
-    "pmv_lk_template": (_p, _p, _p, _i, _i, _i, _f, _p, _p, _p, _p, _p),
-    "pmv_lk_iterate": (_p, _i, _i, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _f, _i,
-                       _p, _p, _p, _p, _p),
+    "pmv_lk_track_level": (_p, _p, _p, _p, _i, _i, _i, _p, _p, _i, _i, _i, _i, _f, _f, _f, _i,
+                           _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p),
     "pmv_min_eig_response": (_p, _i, _i, _p, _p),
 }
 

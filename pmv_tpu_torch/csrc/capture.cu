@@ -7,8 +7,8 @@
 // extraction, no arithmetic on pixels, so the result is bit-exact.
 //
 // Where it runs: at init and after a reseed only, when the cached blocks do
-// not cover the new feature positions. On a tracked frame lk_iterate (lk.cu)
-// captures its own region and hands it on.
+// not cover the new feature positions. On a tracked frame the level kernel
+// (lk.cu) captures its own region and hands it on.
 //
 // Bound: bytes by the roofline (each block element is read once and written
 // once; nothing is computed); in fact the latency of a block's dependent
@@ -16,7 +16,7 @@
 // - it reads the unpadded level at clamped coordinates (region.cuh), so no
 //   padded copy of the level is written and read back first;
 // - one thread block per feature derives its own origin and stages the
-//   region in shared memory with the same asynchronous copies as lk_iterate
+//   region in shared memory with the same asynchronous copies as lk.cu
 //   (region.cuh: a warp per row, lanes over columns, no index divided), so
 //   all of a block's reads are in flight at once, one round trip deep;
 // - the block is then written out as one flat, fully coalesced copy;

@@ -1,45 +1,57 @@
-// Pyramidal Lucas-Kanade level kernels for Hopper (sm_90a): template
-// statistics, and the iteration loop that captures its own search region.
+// Pyramidal Lucas-Kanade level kernel for Hopper (sm_90a): one launch per
+// pyramid level of a tracked frame, one thread block per feature.
 //
-// Replace the two TPU kernels of pmv_tpu/frontend/pallas_lk.py (_level_call):
-// _make_template_kernel -> lk_template, _make_iter_kernel -> lk_iterate. On a
-// tracked frame lk_iterate also does the work of the TPU capture kernel
-// (pmv_tpu/frontend/pallas_capture.py): the TPU captures in a kernel of its
-// own because it slices only at tile granularity, and keeps template and
-// iteration apart because both blocks would not fit its scoped fast memory.
-// Neither reason holds here: a Hopper block holds the 12.1 KB region (28 KB
-// at Rg=84) in shared memory with room to spare.
+// Replaces both TPU kernels of pmv_tpu/frontend/pallas_lk.py (_level_call:
+// _make_template_kernel and _make_iter_kernel) together with the scalar
+// prologue and epilogue of pallas_lk._track_level_cached around them, and on
+// a tracked frame the TPU capture kernel (pmv_tpu/frontend/pallas_capture.py)
+// too. The TPU keeps these apart for its own reasons: it slices only at tile
+// granularity, so capture is a kernel of its own, and template block and
+// search region together overflowed its scoped fast memory, so template and
+// iteration are two kernels that hand T, Ix, Iy over through device memory.
+// Neither holds here: a Hopper block holds the region, the template's patch
+// and its sampled window in 17 KB of shared memory (38 KB at win=32, Rg=84).
 //
-// lk_template: bilinear-sample a (win+2)^2 window from the previous frame's
-// cached (Rg, Rg) block at the clipped float offset; T = interior, Ix, Iy =
-// central differences * 0.5; Gxx, Gxy, Gyy sums; inv_det (0 where det <=
-// 1e-6); min_eig = (mean - rad) / win^2. Bound: bytes.
-//
-// lk_iterate, one launch per level, one thread block per feature:
-//  1. the region's integer origin from the guess (region.cuh, the same
+// Stages of lk_level_kernel:
+//  1. thread-uniform scalars: the template window's offset inside the cached
+//     block, raw = pts + pad - half - 1 - blk_origin (float32, in that
+//     association); `ok` = the offset lies within 0.75 px of the clip range;
+//     the padded guess; the region's integer origin (region.cuh, the same
 //     floor-and-clip as capture_level);
-//  2. the (Rg, Rg) region of the unpadded level, read at clamped coordinates
-//     (= edge replication) into shared memory;
-//  3. the region and its origin written out as the next frame's template
-//     block;
-//  4. `iters` LK updates with the region resident in shared memory: sample
-//     win x win at clip((g - half) - reg0, 0, Rg - win - 1.000001),
+//  2. two groups of asynchronous copies, started back to back: the (win+3)^2
+//     patch of the previous frame's cached block that the template's bilinear
+//     taps touch, then the (Rg, Rg) region of the unpadded level at clamped
+//     coordinates (= edge replication). Only the patch is waited for;
+//  3. the template, while the region flies: all warps sample the (win+2)^2
+//     window F from the patch; each iterating thread then fills its taps'
+//     T = F interior, Ix, Iy = central differences * 0.5 into registers and
+//     sums Ix^2, Ix*Iy, Iy^2 over them; the three sums go through the warp
+//     shuffles together and meet in one fixed-order reduction over the
+//     iterating warps' partials: Gxx, Gxy, Gyy, inv_det (0 where det <=
+//     1e-6), min_eig = (mean - rad) / win^2;
+//  4. wait for the region; the block's other warps write it and its origin
+//     out as the next frame's template block and leave, the iterating warps
+//     run `iters` LK updates with the region resident in shared memory:
+//     sample win x win at clip((g - half) - reg0, 0, Rg - win - 1.000001),
 //     r = T - I, bx = sum r*Ix, by = sum r*Iy,
 //     du = (Gyy*bx - Gxy*by)*inv_det, dv = (Gxx*by - Gxy*bx)*inv_det,
-//     g += (dv, du) in (row, col).
+//     g += (dv, du) in (row, col);
+//  5. outputs: g - pad, min_eig, ok, the region and its origin. T, Ix, Iy and
+//     the statistics stay in registers; they are written out only where the
+//     caller passes pointers for them (the check against the plain version).
 //
-// What bounds lk_iterate: by the roofline, bytes (the level read once, T/Ix/
-// Iy read, the region written); in fact latency, of the block's dependent
-// accesses (guess, then region) and of `iters` dependent iterations, each a
-// reduction over the window. What the design does about it:
-//  - the region arrives by asynchronous copies (region.cuh), all in flight
-//    at once; while they fly each iterating thread loads its own taps' T,
-//    Ix, Iy and the feature's statistics into registers, and works out its
-//    taps' shared-memory offsets, once for all iterations;
+// What bounds it: by the roofline, bytes (the level read once, the patches
+// read, the region written); in fact latency, of the block's dependent
+// accesses (scalars, then patch and region) and of `iters` dependent
+// iterations, each a reduction over the window. What the design does:
+//  - a level is one launch: no second launch, no T/Ix/Iy round trip through
+//    device memory (2.7 MB written and read back per level at N=512, win=21),
+//    and none of the small operators that computed the scalars;
+//  - patch and region arrive by asynchronous copies, all in flight at once;
+//    the template's arithmetic runs under the region's flight;
 //  - the region never makes a round trip through device memory, and no
 //    iterating thread waits for its way out: the first ITER_WARPS warps
-//    iterate, the block's other warps write the region out from shared
-//    memory meanwhile and leave;
+//    iterate, the block's other warps write the region out meanwhile;
 //  - two warps iterate whatever the block size. Measured on an H100, an
 //    iteration is bound by its chain of dependent instructions (position ->
 //    offsets -> taps -> shuffles -> barrier -> partials -> update), not by
@@ -58,11 +70,6 @@
 //    the same bits of the position, and runs repeat bit for bit;
 //  - the block size is a template parameter (128, 256 or 448 threads); the
 //    wrapper names the one that measured fastest.
-// T, Ix, Iy live in registers, not in shared memory, and shared memory holds
-// only the region and the partials: a kernel that also computes the
-// template (folding lk_template in) would stage the (win+3)^2 patch of the
-// cached block behind the partials and fill the same registers from it, with
-// no change to the loop.
 //
 // The bilinear blend is row blend then column blend, (1-f)*a + f*b, as in
 // the TPU kernel; compiled with --fmad=false so that it rounds like the
@@ -73,9 +80,6 @@
 #include "region.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 
 __device__ __forceinline__ float clampf(float v, float lo, float hi) {
     return fminf(fmaxf(v, lo), hi);
@@ -91,78 +95,6 @@ __device__ __forceinline__ float tap(const float* __restrict__ tile, int stride,
     return (1.0f - fc) * a + fc * b;
 }
 
-// Sum `v` over the block; every thread returns the same value. `part` holds
-// WARPS floats of shared memory. Ends with a barrier so `part` can be reused.
-__device__ __forceinline__ float block_sum(float v, float* part) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
-    __syncthreads();
-    float s = 0.0f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += part[w];
-    __syncthreads();
-    return s;
-}
-
-__global__ void lk_template_kernel(const float* __restrict__ blk,
-                                   const float* __restrict__ raw_r,
-                                   const float* __restrict__ raw_c, int Rg,
-                                   int win, float t_lim,
-                                   float* __restrict__ T,
-                                   float* __restrict__ Ix,
-                                   float* __restrict__ Iy,
-                                   float* __restrict__ stats) {
-    extern __shared__ float smem[];
-    const int n = blockIdx.x;
-    const int fw = win + 2;
-    float* F = smem;                  // (win+2)^2
-    float* part = smem + fw * fw;     // WARPS
-
-    const float* tile = blk + (size_t)n * Rg * Rg;
-    const float lr = clampf(raw_r[n], 0.0f, t_lim);
-    const float lc = clampf(raw_c[n], 0.0f, t_lim);
-    const float fi = floorf(lr), fj = floorf(lc);
-    const float fr = lr - fi, fc = lc - fj;
-    const int i0 = (int)fi, j0 = (int)fj;
-
-    for (int i = threadIdx.x; i < fw * fw; i += THREADS) {
-        const int a = i / fw, b = i - a * fw;
-        F[i] = tap(tile, Rg, i0 + a, j0 + b, fr, fc);
-    }
-    __syncthreads();
-
-    float gxx = 0.0f, gxy = 0.0f, gyy = 0.0f;
-    const size_t base = (size_t)n * win * win;
-    for (int i = threadIdx.x; i < win * win; i += THREADS) {
-        const int a = i / win, b = i - a * win;
-        const float* f = F + (a + 1) * fw + (b + 1);
-        const float ix = (f[1] - f[-1]) * 0.5f;
-        const float iy = (f[fw] - f[-fw]) * 0.5f;
-        T[base + i] = f[0];
-        Ix[base + i] = ix;
-        Iy[base + i] = iy;
-        gxx += ix * ix;
-        gxy += ix * iy;
-        gyy += iy * iy;
-    }
-    const float Gxx = block_sum(gxx, part);
-    const float Gxy = block_sum(gxy, part);
-    const float Gyy = block_sum(gyy, part);
-    if (threadIdx.x == 0) {
-        const float det = Gxx * Gyy - Gxy * Gxy;
-        const float mean = (Gxx + Gyy) * 0.5f;
-        const float h = (Gxx - Gyy) * 0.5f;
-        const float rad = sqrtf(fmaxf(h * h + Gxy * Gxy, 0.0f));
-        float* st = stats + (size_t)n * 5;
-        st[0] = Gxx;
-        st[1] = Gxy;
-        st[2] = Gyy;
-        st[3] = det > 1e-6f ? 1.0f / det : 0.0f;
-        st[4] = (mean - rad) / (float)(win * win);
-    }
-}
-
 // Warps that run the iterations. The window is dealt out over their lanes in
 // row strips of STRIP taps: strip s covers row s / S, columns (s % S) * STRIP
 // onwards, with S = ceil(win / STRIP) strips per row (63 strips on 64 lanes
@@ -174,92 +106,213 @@ constexpr int ITER_LANES = ITER_WARPS * 32;
 constexpr int STRIP = 7;
 constexpr int SLACK = 8;
 
-// NT threads; each of the first ITER_LANES has at most STRIPS strips (strip
-// s belongs to thread s % ITER_LANES). Shared memory: the region (Rg*Rg
-// floats), SLACK zeros, then two buffers of ITER_WARPS (bx, by) partials.
+// Shared memory, in floats: the region (Rg*Rg), SLACK zeros directly behind
+// it, two buffers of ITER_WARPS (bx, by) partials, ITER_WARPS (Gxx, Gxy,
+// Gyy) partials, the (win+3)^2 patch of the cached block, the (win+2)^2
+// sampled window F, and SLACK floats that a strip's taps beyond the window
+// may read (and discard) behind F's last row.
+__host__ __device__ constexpr int part_offset(int Rg) {
+    return (Rg * Rg + SLACK + 1) & ~1;  // float2-aligned
+}
+__host__ __device__ constexpr int gpart_offset(int Rg) {
+    return part_offset(Rg) + 2 * ITER_WARPS * 2;
+}
+__host__ __device__ constexpr int patch_offset(int Rg) {
+    return gpart_offset(Rg) + ITER_WARPS * 4;
+}
+__host__ __device__ constexpr int shared_floats(int Rg, int win) {
+    return patch_offset(Rg) + (win + 3) * (win + 3) + (win + 2) * (win + 2) + SLACK;
+}
 
+struct LevelArgs {
+    const float* blk;     // (N, Rg, Rg) cached blocks of the previous frame
+    const int* blk_r0;    // (N,) their origins, padded coordinates
+    const int* blk_c0;
+    const float* level;   // (H, W) this frame's level, unpadded
+    const float* pts;     // (N, 2) previous positions (u, v), level coordinates
+    const float* guess;   // (N, 2) starting positions (u, v), level coordinates
+    int H, W, pad, Rg, win, iters;
+    float t_lim, ok_hi, i_lim;
+    float* out;           // (N, 2) refined positions, level coordinates
+    float* min_eig;       // (N,)
+    unsigned char* ok;    // (N,) 0 / 1
+    float* region;        // (N, Rg, Rg)
+    int* r0;              // (N,) region origins, padded coordinates
+    int* c0;
+    float* T;             // (N, win, win) each, or null
+    float* Ix;
+    float* Iy;
+    float* stats;         // (N, 5) or null
+};
+
+// Blocks of NT threads that should share an SM: 512 features on 132 SMs are
+// four blocks each. Stating it lets the compiler spend the registers that
+// this occupancy leaves free (64 a thread at 256 threads) on keeping an
+// iteration's shared-memory loads in flight together; without it, it holds
+// the kernel to 48 and sends them out one behind the other. A window that
+// needs more than one strip a lane needs more registers than that.
+constexpr int min_blocks(int nt, int strips) {
+    return strips > 1 ? 1 : (nt >= 448 ? 2 : 4);
+}
+
+// NT threads; each of the first ITER_LANES has at most STRIPS strips (strip
+// s belongs to thread s % ITER_LANES).
 template <int NT, int STRIPS>
-__global__ void __launch_bounds__(NT)
-lk_iterate_kernel(const float* __restrict__ level, int H, int W, int pad,
-                  const float* __restrict__ T, const float* __restrict__ Ix,
-                  const float* __restrict__ Iy,
-                  const float* __restrict__ stats,
-                  const float* __restrict__ guess, int Rg, int win, int iters,
-                  float i_lim, float* __restrict__ out,
-                  float* __restrict__ region_out, int* __restrict__ r0_out,
-                  int* __restrict__ c0_out) {
-    static_assert(NT >= ITER_LANES && NT % 32 == 0, "block too small");
+__global__ void __launch_bounds__(NT, min_blocks(NT, STRIPS))
+lk_level_kernel(const LevelArgs a) {
+    static_assert(NT > ITER_LANES && NT % 32 == 0, "block too small");
     extern __shared__ float smem[];
-    const int rr = Rg * Rg;
+    const int Rg = a.Rg, win = a.win, rr = Rg * Rg;
+    const int pw = win + 3, fw = win + 2;
     float* s_reg = smem;
-    float2* part = reinterpret_cast<float2*>(smem + ((rr + SLACK + 1) & ~1));
+    float2* part = reinterpret_cast<float2*>(smem + part_offset(Rg));
+    float* gpart = smem + gpart_offset(Rg);
+    float* s_patch = smem + patch_offset(Rg);
+    float* s_F = s_patch + pw * pw;
 
     const int n = blockIdx.x, tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    float g_c = guess[2 * n];       // u = column
-    float g_r = guess[2 * n + 1];   // v = row
-    const int r0 = pmv::region_origin(g_r, win, Rg, H + 2 * pad);
-    const int c0 = pmv::region_origin(g_c, win, Rg, W + 2 * pad);
-    pmv::stage_region(s_reg, level, H, W, pad, r0, c0, Rg, NT / 32);
-    if (tid < SLACK) s_reg[rr + tid] = 0.0f;
+    constexpr int NW = NT / 32;
 
-    // While the copies fly: this thread's strips, for all iterations. A
-    // strip it does not have sits on the region's corner with zero Ix, Iy.
-    const int S = (win + STRIP - 1) / STRIP;  // strips per window row
-    const int nstrips = win * S;
-    const size_t base = (size_t)n * win * win;
-    int off[STRIPS];  // offset of the strip's first tap inside the region
-    float tT[STRIPS][STRIP], tIx[STRIPS][STRIP], tIy[STRIPS][STRIP];
-#pragma unroll
-    for (int k = 0; k < STRIPS; ++k) {
-        const int s = tid + k * ITER_LANES;
-        off[k] = 0;
-        int row = 0, col = 0, len = 0;
-        if (tid < ITER_LANES && s < nstrips) {
-            row = s / S;
-            col = (s - row * S) * STRIP;
-            len = min(STRIP, win - col);
-            off[k] = row * Rg + col;
-        }
-#pragma unroll
-        for (int j = 0; j < STRIP; ++j) {
-            tT[k][j] = tIx[k][j] = tIy[k][j] = 0.0f;
-            if (j < len) {
-                const size_t i = base + row * win + col + j;
-                tT[k][j] = T[i];
-                tIx[k][j] = Ix[i];
-                tIy[k][j] = Iy[i];
+    // 1. scalars, the same in every thread
+    const float padf = (float)a.pad;
+    const float half = (float)(win - 1) / 2.0f;
+    const float raw_r = (((a.pts[2 * n + 1] + padf) - half) - 1.0f) - (float)a.blk_r0[n];
+    const float raw_c = (((a.pts[2 * n] + padf) - half) - 1.0f) - (float)a.blk_c0[n];
+    float g_c = a.guess[2 * n] + padf;       // u = column
+    float g_r = a.guess[2 * n + 1] + padf;   // v = row
+    const int r0 = pmv::region_origin(g_r, win, Rg, a.H + 2 * a.pad);
+    const int c0 = pmv::region_origin(g_c, win, Rg, a.W + 2 * a.pad);
+    const float t_r = clampf(raw_r, 0.0f, a.t_lim);
+    const float t_c = clampf(raw_c, 0.0f, a.t_lim);
+    const float t_fi = floorf(t_r), t_fj = floorf(t_c);
+    const float t_fr = t_r - t_fi, t_fc = t_c - t_fj;
+
+    // 2. copies: the template's patch (group 0), then the region (group 1)
+    {
+        const float* src = a.blk + (size_t)n * rr + (int)t_fi * Rg + (int)t_fj;
+        for (int r = warp; r < pw; r += NW) {
+            for (int c = lane; c < pw; c += 32) {
+                const unsigned dst =
+                    (unsigned)__cvta_generic_to_shared(s_patch + r * pw + c);
+                asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                             "l"(src + r * Rg + c)
+                             : "memory");
             }
         }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
-    const float* st = stats + (size_t)n * 5;
-    const float Gxx = st[0], Gxy = st[1], Gyy = st[2], inv_det = st[3];
-    const float r0f = (float)r0, c0f = (float)c0;
-    const float half = (float)(win - 1) / 2.0f;
+    pmv::stage_region(s_reg, a.level, a.H, a.W, a.pad, r0, c0, Rg, NW);
+    if (tid < SLACK) s_reg[rr + tid] = 0.0f;
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // the patch
+    __syncthreads();
 
+    // 3. template, under the region's flight: F by all warps, a warp per row
+    for (int i = warp; i < fw; i += NW)
+        for (int j = lane; j < fw; j += 32)
+            s_F[i * fw + j] = tap(s_patch, pw, i, j, t_fr, t_fc);
+    __syncthreads();
+
+    // This thread's strips, for all iterations. A strip it does not have
+    // sits on the region's corner with zero Ix, Iy.
+    const int S = (win + STRIP - 1) / STRIP;  // strips per window row
+    const int nstrips = win * S;
+    int off[STRIPS];  // offset of the strip's first tap inside the region
+    float tT[STRIPS][STRIP], tIx[STRIPS][STRIP], tIy[STRIPS][STRIP];
+    if (tid < ITER_LANES) {
+        float gxx = 0.0f, gxy = 0.0f, gyy = 0.0f;
+#pragma unroll
+        for (int k = 0; k < STRIPS; ++k) {
+            const int s = tid + k * ITER_LANES;
+            off[k] = 0;
+            int row = 0, col = 0, len = 0;
+            if (s < nstrips) {
+                row = s / S;
+                col = (s - row * S) * STRIP;
+                len = min(STRIP, win - col);
+                off[k] = row * Rg + col;
+            }
+            // No branch on a tap: one beyond the window reads on along F
+            // (at most SLACK floats past its end) and is set to zero.
+            const float* f = s_F + (row + 1) * fw + (col + 1);
+#pragma unroll
+            for (int j = 0; j < STRIP; ++j) {
+                const bool in = j < len;
+                const float ix = in ? (f[j + 1] - f[j - 1]) * 0.5f : 0.0f;
+                const float iy = in ? (f[j + fw] - f[j - fw]) * 0.5f : 0.0f;
+                tT[k][j] = in ? f[j] : 0.0f;
+                tIx[k][j] = ix;
+                tIy[k][j] = iy;
+                gxx += ix * ix;
+                gxy += ix * iy;
+                gyy += iy * iy;
+            }
+            if (a.T != nullptr) {  // the check of this stage only
+                const size_t base = (size_t)n * win * win + row * win + col;
+                for (int j = 0; j < len; ++j) {
+                    a.T[base + j] = f[j];
+                    a.Ix[base + j] = (f[j + 1] - f[j - 1]) * 0.5f;
+                    a.Iy[base + j] = (f[j + fw] - f[j - fw]) * 0.5f;
+                }
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            gxx += __shfl_xor_sync(0xffffffffu, gxx, o);
+            gxy += __shfl_xor_sync(0xffffffffu, gxy, o);
+            gyy += __shfl_xor_sync(0xffffffffu, gyy, o);
+        }
+        if (lane == 0) {
+            gpart[warp * 4] = gxx;
+            gpart[warp * 4 + 1] = gxy;
+            gpart[warp * 4 + 2] = gyy;
+        }
+    }
+
+    // 4. the region has landed; the barrier also publishes the G partials
     pmv::wait_staged();
     __syncthreads();
 
-    // Hand the region on: by the warps that do not iterate, which then
-    // leave; by everyone first where every warp iterates.
-    float* dst = region_out + (size_t)n * rr;
-    if (NT > ITER_LANES) {
-        if (tid >= ITER_LANES) {
-            for (int i = tid - ITER_LANES; i < rr; i += NT - ITER_LANES)
-                dst[i] = s_reg[i];
-            return;
-        }
-    } else {
-        for (int i = tid; i < rr; i += NT) dst[i] = s_reg[i];
-    }
-    if (tid == 0) {
-        r0_out[n] = r0;
-        c0_out[n] = c0;
+    // Hand the region on, by the warps that do not iterate, which then leave.
+    if (tid >= ITER_LANES) {
+        float* dst = a.region + (size_t)n * rr;
+        for (int i = tid - ITER_LANES; i < rr; i += NT - ITER_LANES) dst[i] = s_reg[i];
+        return;
     }
 
-    for (int it = 0; it < iters; ++it) {
-        const float lr = clampf((g_r - half) - r0f, 0.0f, i_lim);
-        const float lc = clampf((g_c - half) - c0f, 0.0f, i_lim);
+    float Gxx = gpart[0], Gxy = gpart[1], Gyy = gpart[2];
+#pragma unroll
+    for (int w = 1; w < ITER_WARPS; ++w) {
+        Gxx += gpart[w * 4];
+        Gxy += gpart[w * 4 + 1];
+        Gyy += gpart[w * 4 + 2];
+    }
+    const float det = Gxx * Gyy - Gxy * Gxy;
+    const float inv_det = det > 1e-6f ? 1.0f / det : 0.0f;
+    if (tid == 0) {
+        const float mean = (Gxx + Gyy) * 0.5f;
+        const float h = (Gxx - Gyy) * 0.5f;
+        const float rad = sqrtf(fmaxf(h * h + Gxy * Gxy, 0.0f));
+        const float min_eig = (mean - rad) / (float)(win * win);
+        a.min_eig[n] = min_eig;
+        a.ok[n] = (raw_r > -0.75f) && (raw_r < a.ok_hi) && (raw_c > -0.75f) &&
+                  (raw_c < a.ok_hi);
+        a.r0[n] = r0;
+        a.c0[n] = c0;
+        if (a.stats != nullptr) {
+            float* st = a.stats + (size_t)n * 5;
+            st[0] = Gxx;
+            st[1] = Gxy;
+            st[2] = Gyy;
+            st[3] = inv_det;
+            st[4] = min_eig;
+        }
+    }
+    const float r0f = (float)r0, c0f = (float)c0;
+
+    for (int it = 0; it < a.iters; ++it) {
+        const float lr = clampf((g_r - half) - r0f, 0.0f, a.i_lim);
+        const float lc = clampf((g_c - half) - c0f, 0.0f, a.i_lim);
         const float fi = floorf(lr), fj = floorf(lc);
         const float fr = lr - fi, fc = lc - fj;
         const float wr = 1.0f - fr, wc = 1.0f - fc;
@@ -285,7 +338,7 @@ lk_iterate_kernel(const float* __restrict__ level, int H, int W, int pad,
         }
         float2* pp = part + (it & 1) * ITER_WARPS;
         if (lane == 0) pp[warp] = make_float2(bx, by);
-        // barrier 1: the iterating warps only (the others may have left)
+        // barrier 1: the iterating warps only (the others have left)
         asm volatile("bar.sync 1, %0;" ::"n"(ITER_LANES) : "memory");
         float2 v[ITER_WARPS];
 #pragma unroll
@@ -306,85 +359,67 @@ lk_iterate_kernel(const float* __restrict__ level, int H, int W, int pad,
         g_c += du;
     }
     if (tid == 0) {
-        out[2 * n] = g_c;
-        out[2 * n + 1] = g_r;
+        a.out[2 * n] = g_c - padf;
+        a.out[2 * n + 1] = g_r - padf;
     }
 }
 
-int opt_in(const void* fn, size_t bytes) {
-    if (bytes <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int NT, int STRIPS>
-int launch_iterate(const float* level, int H, int W, int pad, const float* T,
-                   const float* Ix, const float* Iy, const float* stats,
-                   const float* guess, int N, int Rg, int win, int iters,
-                   float i_lim, float* out, float* region_out, int* r0_out,
-                   int* c0_out, cudaStream_t stream) {
-    const size_t bytes = (((size_t)Rg * Rg + SLACK + 1) & ~(size_t)1) * sizeof(float) +
-                         2 * ITER_WARPS * sizeof(float2);
-    int err = opt_in((const void*)lk_iterate_kernel<NT, STRIPS>, bytes);
-    if (err) return err;
-    lk_iterate_kernel<NT, STRIPS><<<N, NT, bytes, stream>>>(
-        level, H, W, pad, T, Ix, Iy, stats, guess, Rg, win, iters, i_lim, out,
-        region_out, r0_out, c0_out);
+int launch_level(const LevelArgs& a, int N, cudaStream_t stream) {
+    const size_t bytes = (size_t)shared_floats(a.Rg, a.win) * sizeof(float);
+    if (bytes > 48 * 1024) {
+        int err = (int)cudaFuncSetAttribute(
+            lk_level_kernel<NT, STRIPS>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        if (err) return err;
+    }
+    lk_level_kernel<NT, STRIPS><<<N, NT, bytes, stream>>>(a);
     return (int)cudaGetLastError();
 }
 
-template <int NT, typename... Args>
-int launch_iterate_strips(int win, Args... args) {
-    const int nstrips = win * ((win + STRIP - 1) / STRIP);
+template <int NT>
+int launch_level_strips(const LevelArgs& a, int N, cudaStream_t stream) {
+    const int nstrips = a.win * ((a.win + STRIP - 1) / STRIP);
     const int strips = (nstrips + ITER_LANES - 1) / ITER_LANES;
-    if (strips <= 1) return launch_iterate<NT, 1>(args...);
-    if (strips <= 2) return launch_iterate<NT, 2>(args...);
-    if (strips <= 3) return launch_iterate<NT, 3>(args...);
+    if (strips <= 1) return launch_level<NT, 1>(a, N, stream);
+    if (strips <= 2) return launch_level<NT, 2>(a, N, stream);
+    if (strips <= 3) return launch_level<NT, 3>(a, N, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// blk: (N, Rg, Rg); raw_r, raw_c: (N,) float offsets of the (win+2)^2 window
-// inside the block (clipped here); T, Ix, Iy: (N, win, win); stats: (N, 5) =
-// [Gxx, Gxy, Gyy, inv_det, min_eig]. All float32, contiguous. t_lim is the
-// upper clip of the offsets, Rg - (win + 2) - 1e-5, rounded by the caller.
-extern "C" int pmv_lk_template(const float* blk, const float* raw_r,
-                               const float* raw_c, int N, int Rg, int win,
-                               float t_lim, float* T, float* Ix, float* Iy, float* stats,
-                               cudaStream_t stream) {
+// blk: (N, Rg, Rg) cached blocks with origins blk_r0, blk_c0 (N,) int32 in
+// the coordinates of the level edge-padded by `pad`; level: (H, W) float32,
+// unpadded; pts, guess, out: (N, 2) float32 as (u=column, v=row) in unpadded
+// level coordinates; min_eig: (N,) float32; ok: (N,) bytes, 0 or 1; region:
+// (N, Rg, Rg); r0, c0: (N,) int32 region origins in padded coordinates.
+// T, Ix, Iy ((N, win, win) each) and stats ((N, 5) = [Gxx, Gxy, Gyy,
+// inv_det, min_eig]) may be null: they are written only for the check of the
+// template stage. The caller rounds the three limits to float32: t_lim, the
+// upper clip of the template window's offset, Rg - (win + 2) - 1e-5; ok_hi =
+// t_lim + 0.75 in double; i_lim, the upper clip of the local window
+// position, Rg - win - 1.000001. threads: 128, 256 or 448; win * ceil(win /
+// 7) <= 192 (three strips per iterating thread; win <= 35); Rg >= win + 3.
+extern "C" int pmv_lk_track_level(const float* blk, const int* blk_r0,
+                                  const int* blk_c0, const float* level, int H,
+                                  int W, int pad, const float* pts,
+                                  const float* guess, int N, int Rg, int win,
+                                  int iters, float t_lim, float ok_hi,
+                                  float i_lim, int threads, float* out,
+                                  float* min_eig, unsigned char* ok,
+                                  float* region, int* r0, int* c0, float* T,
+                                  float* Ix, float* Iy, float* stats,
+                                  cudaStream_t stream) {
     if (N <= 0) return 0;
-    const size_t bytes = ((size_t)(win + 2) * (win + 2) + WARPS) * sizeof(float);
-    int err = opt_in((const void*)lk_template_kernel, bytes);
-    if (err) return err;
-    lk_template_kernel<<<N, THREADS, bytes, stream>>>(blk, raw_r, raw_c, Rg, win,
-                                                     t_lim, T, Ix, Iy, stats);
-    return (int)cudaGetLastError();
-}
-
-// level: (H, W) float32, unpadded; pad: the edge padding the coordinates
-// assume; T, Ix, Iy: (N, win, win); stats: (N, 5); guess, out: (N, 2) as
-// (u=column, v=row) in padded-level coordinates; region_out: (N, Rg, Rg);
-// r0_out, c0_out: (N,) int32 region origins in padded coordinates. i_lim is
-// the upper clip of the local window position, Rg - win - 1.000001, rounded
-// by the caller. threads: 128, 256 or 448; win * ceil(win / 7) <= 192 (three
-// strips per iterating thread; win <= 35).
-extern "C" int pmv_lk_iterate(const float* level, int H, int W, int pad,
-                              const float* T, const float* Ix, const float* Iy,
-                              const float* stats, const float* guess, int N,
-                              int Rg, int win, int iters, float i_lim,
-                              int threads, float* out, float* region_out,
-                              int* r0_out, int* c0_out, cudaStream_t stream) {
-    if (N <= 0) return 0;
-#define PMV_ITERATE(NT)                                                      \
-    launch_iterate_strips<NT>(win, level, H, W, pad, T, Ix, Iy, stats, guess, N, \
-                            Rg, win, iters, i_lim, out, region_out, r0_out,    \
-                            c0_out, stream)
+    if (Rg < win + 3) return (int)cudaErrorInvalidValue;
+    const LevelArgs a = {blk, blk_r0, blk_c0, level, pts, guess, H, W, pad, Rg,
+                         win, iters, t_lim, ok_hi, i_lim, out, min_eig, ok,
+                         region, r0, c0, T, Ix, Iy, stats};
     switch (threads) {
-        case 128: return PMV_ITERATE(128);
-        case 256: return PMV_ITERATE(256);
-        case 448: return PMV_ITERATE(448);
+        case 128: return launch_level_strips<128>(a, N, stream);
+        case 256: return launch_level_strips<256>(a, N, stream);
+        case 448: return launch_level_strips<448>(a, N, stream);
     }
-#undef PMV_ITERATE
     return (int)cudaErrorInvalidValue;
 }

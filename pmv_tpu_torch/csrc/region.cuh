@@ -1,5 +1,5 @@
 // Search-region geometry shared by capture.cu (capture_level) and lk.cu
-// (lk_iterate): one definition of where a feature's (Rg, Rg) region lies
+// (lk_track_level): one definition of where a feature's (Rg, Rg) region lies
 // and of how it is read.
 //
 // Positions and origins are in the coordinates of the level edge-padded by

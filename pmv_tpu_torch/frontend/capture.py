@@ -4,7 +4,7 @@
 Replaces the TPU kernel ``pmv_tpu/frontend/pallas_capture.py``
 (``capture_level`` / ``_capture_call``). It runs once per pyramid level at
 init and after a reseed, when the cached blocks do not cover the new feature
-positions; on a tracked frame ``lk_kernels.lk_iterate`` captures its own
+positions; on a tracked frame ``lk_kernels.lk_track_level`` captures its own
 region.
 
 Bound on this card: bytes (each level pixel under a region read once,

@@ -8,25 +8,27 @@ frame is captured once around the current guess; all LK iterations sample
 inside it, and it doubles as the next frame's template source. Blocks are
 feature-major ``(N, Rg, Rg)``.
 
-A tracked frame costs two kernel launches per level: ``lk_template`` on the
-cached block, then ``lk_iterate``, which captures the region itself, iterates
-in it and returns it. The capture kernel ``capture_level`` runs only from
-:func:`capture_blocks`, at init and after a reseed. All three read the
-unpadded level at clamped coordinates; positions and origins stay in the
-coordinates of the level edge-padded by :func:`_pad_for`, but no padded copy
-is made on the card (the TPU package's ``jnp.pad`` per level and frame is
-gone).
+A tracked frame costs one kernel launch per level: ``lk_track_level``
+derives the template window's offset, computes the template from the cached
+block, captures the new region itself, iterates in it and returns it. The
+capture kernel ``capture_level`` runs only from :func:`capture_blocks`, at
+init and after a reseed. Both read the unpadded level at clamped
+coordinates; origins stay in the coordinates of the level edge-padded by
+:func:`_pad_for`, but no padded copy is made on the card (the TPU package's
+``jnp.pad`` per level and frame is gone).
 
-This module holds the pieces of the plain PyTorch versions of the three CUDA
-kernels and the level/pyramid logic around them:
+This module holds the pieces of the plain PyTorch versions of the two CUDA
+kernels and the pyramid logic around them:
 
 - :func:`_capture_region`   — gather of ``capture.capture_level_plain`` (on a
   padded level)
-- :func:`template_stats`    — plain version of ``lk_kernels.lk_template``
-- :func:`_iterate`          — the loop of ``lk_kernels.lk_iterate_plain``
+- :func:`template_stats`    — plain version of the level kernel's template
+  stage (``lk_kernels.lk_template_plain``)
+- :func:`_iterate`          — the loop of ``lk_kernels.lk_iterate_plain``, the
+  plain version of its iteration stage
 
 :func:`_track_level_cached` and :func:`capture_blocks` call the wrappers in
-``capture`` / ``lk_kernels``, which launch the kernels for CUDA tensors and
+``lk_kernels`` / ``capture``, which launch the kernels for CUDA tensors and
 fall through to the plain versions for CPU tensors. (Those modules import
 this one for the plain versions, hence the function-level imports below.)
 
@@ -110,7 +112,7 @@ def iterate_limit(Rg: int, win: int) -> float:
 
 
 def template_stats(blk: Tensor, raw_r: Tensor, raw_c: Tensor, win: int):
-    """Plain version of the ``lk_template`` kernel: sample the (win+2)^2
+    """Plain version of the level kernel's template stage: sample the (win+2)^2
     window at the clipped offsets and derive the template statistics.
     Returns (T, Ix, Iy (N, win, win), stats (N, 5) = [Gxx, Gxy, Gyy,
     inv_det, min_eig])."""
@@ -154,7 +156,7 @@ def _capture_region(img_padded: Tensor, center: Tensor, win: int, search: int):
 
 def _iterate(region, reg_r0, reg_c0, T, Ix, Iy, stats, guess_padded,
              win: int, iters: int):
-    """The loop of the ``lk_iterate`` kernel's plain version: the LK
+    """The loop of the level kernel's iteration stage, plain version: the LK
     iterations on a captured region block; positions (u, v) in padded-image
     coords."""
     Rg = region.shape[-1]
@@ -193,22 +195,10 @@ def _track_level_cached(
     doubles as the next frame's template source."""
     from pmv_tpu_torch.frontend import lk_kernels
 
-    PAD = _pad_for(win, search)
-    Rg = region_size(win, search)
-    half = (win - 1) / 2.0
-
-    lim = template_limit(Rg, win)
-    raw_r = pts_level[:, 1] + PAD - half - 1.0 - blk_r0
-    raw_c = pts_level[:, 0] + PAD - half - 1.0 - blk_c0
-    # A feature that drifted outside its cached block would silently sample a
-    # shifted (wrong) template — flag it instead; the caller drops the track.
-    ok = (raw_r > -0.75) & (raw_r < lim + 0.75) & (raw_c > -0.75) & (raw_c < lim + 0.75)
-    guess_p = guess + PAD
-    T, Ix, Iy, stats = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-    g, region, reg_r0, reg_c0 = lk_kernels.lk_iterate(
-        next_img, T, Ix, Iy, stats, guess_p, win, search, iters
+    g, min_eig, ok, region, reg_r0, reg_c0 = lk_kernels.lk_track_level(
+        blk, blk_r0, blk_c0, next_img, pts_level, guess, win, search, iters
     )
-    return g - PAD, stats[:, 4], ok, (region, reg_r0, reg_c0)
+    return g, min_eig, ok, (region, reg_r0, reg_c0)
 
 
 def capture_blocks(pyr, pts: Tensor, win: int = 32, search: int | None = None) -> tuple:
@@ -238,8 +228,8 @@ def track_cached(
 ) -> tuple[Tensor, Tensor, tuple]:
     """Track (N, 2) points into ``next_pyr`` with the per-level templates
     taken from ``blocks`` (the region blocks returned by the previous call /
-    capture_blocks); each level's iteration kernel captures the one new
-    block the frame needs.
+    capture_blocks); each level's kernel captures the one new block the
+    frame needs.
 
     Returns (new_pts, status, new_blocks). Status clears when the point
     leaves the image, drifts outside its cached block, or the normal matrix

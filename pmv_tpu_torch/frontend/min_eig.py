@@ -2,13 +2,17 @@
 ``csrc/min_eig.cu`` and its plain version.
 
 Replaces the TPU kernel ``pmv_tpu/frontend/pallas_kernels.py``
-(``min_eig_response``): image -> response in one pass.
+(``min_eig_response``): image -> response in one launch.
 
 Bound on this card: bytes (one image read, one response written). The plain
 version materialises eight full-size intermediates in device memory; the
-kernel stages a tile with its apron in shared memory and writes each output
-once. Border semantics are the plain version's (zero gradient on the 1-px
-border, edge-replicated blur), so the two agree on the whole image.
+kernel is a sliding separable pass: a lane owns a column and walks down a
+band of rows, takes its row neighbours by warp shuffles, keeps the last
+three rows of horizontal thirds of the gradient products in registers and
+writes each output once — no shared memory, no barrier, each gradient formed
+once per band. Border semantics are the plain version's (zero gradient on
+the 1-px border, edge-replicated blur) and so is the order of additions, so
+the two agree on the whole image.
 """
 
 from __future__ import annotations

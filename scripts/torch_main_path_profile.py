@@ -1,7 +1,8 @@
 """Where the time of the PyTorch/CUDA port's default loop goes, on a GPU.
 
     python3 scripts/torch_main_path_profile.py [--frames 45] [--repeat 1] [--deterministic]
-                                               [--runs-only] [--out profile.json]
+                                               [--runs-only] [--plain-tracker]
+                                               [--out profile.json]
 
 Writes the bench corridor (370x1226, the settings of chip_smoke.py's main
 path), then runs ``pmv_tpu_torch``'s ``OdometryPipeline`` on it three times
@@ -11,11 +12,16 @@ ms/frame and of the trajectory error from run to run), a run with the stages
 timed, and a run under ``torch.profiler`` whose per-operator totals give the
 device-busy share, the costliest operators, and the device time of the
 hand-written kernels and of the edge-padding kernel by name (``tracker``:
-what the LK tracker's kernels cost on the device per tracked frame).
+what the LK tracker's kernels cost on the device per tracked frame, and how
+many operators ``track_cached`` dispatches per tracked frame).
 ``--deterministic`` sets ``torch.use_deterministic_algorithms(True)`` for
 the whole process (operators that sum with atomics take their ordered
 variants), to tell whether runs of one seed differ because of such operators;
-``--runs-only`` stops after the cold and warm runs.
+``--runs-only`` stops after the cold and warm runs. ``--plain-tracker`` adds
+two runs in which every tracked level goes through ``lk_track_level_plain``
+on the card in place of the kernel (``plain_tracker_runs``): what the
+trajectory and its error are when only the order of the kernel's sums
+differs.
 Prints one JSON object and, with ``--out``, also writes it to that file. Needs a CUDA device.
 """
 
@@ -36,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from pmv_tpu_torch.cli import rebased_ate  # noqa: E402
 from pmv_tpu_torch.config import VOConfig  # noqa: E402
+from pmv_tpu_torch.frontend import lk_kernels, lucas_kanade  # noqa: E402
 from pmv_tpu_torch.io import synthetic  # noqa: E402
 from pmv_tpu_torch.pipeline import fused  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
@@ -43,9 +50,13 @@ from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 SHAPE = (370, 1226)
 # Device entries of the trace that belong to the tracker: the hand-written
 # kernels of csrc/ and PyTorch's replication-pad kernel (edge padding of a
-# level before a capture).
-TRACKER_KERNELS = ("capture_kernel", "lk_template_kernel", "lk_iterate_kernel",
-                   "replication_pad")
+# level before a capture). ``lk_template_kernel`` and ``lk_iterate_kernel``
+# were the level kernel's two halves in earlier commits: a parent tree that
+# is profiled by this script (scripts/torch_parent_vs_change.sh) has them in
+# its place, and a tree without them counts no call of them.
+TRACKER_KERNELS = ("capture_kernel", "lk_level_kernel", "lk_template_kernel",
+                   "lk_iterate_kernel", "replication_pad")
+TRACK_RANGE = "tracker::track_cached"  # profiler range around lucas_kanade.track_cached
 
 
 def make_cfg(paths: dict, frames: int) -> VOConfig:
@@ -72,6 +83,22 @@ def run_once(cfg: VOConfig) -> dict:
         # equal sums mean the same trajectory bit for bit
         "t_checksum": float(np.stack(pipe.t).astype(np.float64).sum()),
     }
+
+
+def plain_tracker_runs(cfg: VOConfig, n: int) -> list[dict]:
+    """Runs whose tracked levels are computed by the plain version."""
+    orig = lucas_kanade._track_level_cached
+
+    def plain_level(blk, br0, bc0, next_img, pts_level, guess, win, iters, search):
+        g, me, ok, region, r0, c0 = lk_kernels.lk_track_level_plain(
+            blk, br0, bc0, next_img, pts_level, guess, win, search, iters)
+        return g, me, ok, (region, r0, c0)
+
+    lucas_kanade._track_level_cached = plain_level
+    try:
+        return [run_once(cfg) for _ in range(n)]
+    finally:
+        lucas_kanade._track_level_cached = orig
 
 
 def stage_times(cfg: VOConfig) -> dict:
@@ -109,13 +136,37 @@ def stage_times(cfg: VOConfig) -> dict:
 
 
 def profiled(cfg: VOConfig, top: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r = run_once(cfg)
-        wall = time.perf_counter() - t0
+    orig_track = lucas_kanade.track_cached
+
+    def ranged_track(*a, **k):
+        with record_function(TRACK_RANGE):
+            return orig_track(*a, **k)
+
+    lucas_kanade.track_cached = ranged_track
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r = run_once(cfg)
+            wall = time.perf_counter() - t0
+    finally:
+        lucas_kanade.track_cached = orig_track
     ka = prof.key_averages()
+
+    # Operators dispatched inside track_cached: the descendants of the range's
+    # host-side events (the trace lists each range a second time for the
+    # device, without children).
+    n_top_ops = n_ops = 0
+    for ev in prof.events():
+        if ev.name != TRACK_RANGE or not ev.cpu_children:
+            continue
+        n_top_ops += sum(c.name.startswith("aten::") for c in ev.cpu_children)
+        stack = list(ev.cpu_children)
+        while stack:
+            c = stack.pop()
+            n_ops += c.name.startswith("aten::")
+            stack.extend(c.cpu_children)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -130,6 +181,9 @@ def profiled(cfg: VOConfig, top: int) -> dict:
                          "device_ms": sum(dev_us(e) for e in hits) / 1e3}
     tracker["per_frame_ms"] = sum(
         tracker[k]["device_ms"] for k in TRACKER_KERNELS) / r["tracked_frames"]
+    # per tracked frame: operators track_cached calls itself, and with those they call
+    tracker["track_cached_ops_per_frame"] = n_top_ops / r["tracked_frames"]
+    tracker["track_cached_ops_nested_per_frame"] = n_ops / r["tracked_frames"]
     return {
         "run": r, "wall_s": wall, "device_busy_s": device_us / 1e6, "tracker": tracker,
         "device_idle_share": 1.0 - device_us / 1e6 / r["runtime_s"] if device_us else None,
@@ -147,6 +201,8 @@ def main() -> int:
     ap.add_argument("--deterministic", action="store_true",
                     help="torch.use_deterministic_algorithms(True) for all runs")
     ap.add_argument("--runs-only", action="store_true", help="cold and warm runs only")
+    ap.add_argument("--plain-tracker", action="store_true",
+                    help="also two runs with the plain version in place of the level kernel")
     ap.add_argument("--out", default=None, help="also write the JSON object to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -168,6 +224,8 @@ def main() -> int:
         out["cold"] = run_once(cfg)
         out["warm_runs"] = [run_once(cfg) for _ in range(max(1, args.repeat))]
         out["warm"] = out["warm_runs"][0]
+        if args.plain_tracker:
+            out["plain_tracker_runs"] = plain_tracker_runs(cfg, 2)
         if not args.runs_only:
             out["stages_warm"] = stage_times(cfg)
             out["profiled"] = profiled(cfg, args.top)

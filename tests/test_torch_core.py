@@ -16,6 +16,12 @@ from pmv_tpu_torch.core import linalg
 from pmv_tpu_torch.core import state
 from pmv_tpu_torch.frontend import corners
 
+# One thread: the shapes here are small, several test processes share the
+# machine, and the first multi-threaded call of some CPU operators in a fresh
+# process (torch.sqrt in torch 2.13) has been seen to return wrong values in
+# one thread's share of the tensor.
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a))

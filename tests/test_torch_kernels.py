@@ -1,13 +1,14 @@
 """The port's kernel modules against the JAX package, on the CPU.
 
-On the CPU every wrapper (``capture_level``, ``lk_template``, ``lk_iterate``,
+On the CPU every wrapper (``capture_level``, ``lk_track_level``,
 ``min_eig_response``) runs its plain PyTorch version, which is also the
 yardstick the CUDA kernel is held against on the card (``chip_smoke.py``).
 Here the same numpy-seeded arrays go through the JAX function — the XLA
 formulation and the Pallas kernel in interpret mode — and through the port.
 
-``capture_level`` and ``lk_iterate`` take the *unpadded* level and positions
-in padded coordinates; the JAX functions take the padded level.
+``capture_level`` and ``lk_track_level`` take the *unpadded* level (the
+former with positions in padded coordinates); the JAX functions take the
+padded level.
 """
 
 import re
@@ -25,6 +26,12 @@ from pmv_tpu_torch import build
 from pmv_tpu_torch.frontend import capture, image, lk_kernels, min_eig
 from pmv_tpu_torch.frontend import lucas_kanade as lk
 
+# One thread: the shapes here are small, several test processes share the
+# machine, and the first multi-threaded call of some CPU operators in a fresh
+# process (torch.sqrt in torch 2.13) has been seen to return wrong values in
+# one thread's share of the tensor.
+torch.set_num_threads(1)
+
 
 def T(a):
     return torch.from_numpy(np.array(a))  # a writable copy
@@ -39,6 +46,39 @@ def _pyr_and_pts(seed=0, shape=(120, 180), n=70, levels=3):
 
 
 # ---------------------------------------------------------------- K4
+
+
+def _min_eig_response_sliding(img, band):
+    """The order of work of ``csrc/min_eig.cu`` in PyTorch: band by band, row
+    by row, with running horizontal thirds. A row's gradient products are
+    zero wherever the pixel is not strictly inside the image (which is what a
+    zero border gradient under an edge-replicated blur comes to); their
+    thirds are ``(left + centre + right) / 3``; an output row is the sum of
+    the last three rows of thirds over 3. It models the order of additions
+    only, not the kernel's shuffles, aprons or division step."""
+    H, W = img.shape
+    out = torch.empty_like(img)
+    zero = torch.zeros(W + 2, dtype=img.dtype)
+
+    def thirds(y):
+        """Horizontal thirds of the three products of row ``y`` (any integer;
+        rows not strictly inside the image have zero products)."""
+        gx, gy = zero.clone(), zero.clone()  # columns -1 .. W
+        if 0 < y < H - 1:
+            gx[2:W] = (img[y, 2:] - img[y, :-2]) * 0.5
+            gy[2:W] = (img[y + 1, 1:-1] - img[y - 1, 1:-1]) * 0.5
+        return tuple((p[:-2] + p[1:-1] + p[2:]) / 3.0 for p in (gx * gx, gy * gy, gx * gy))
+
+    for y0 in range(0, H, band):
+        h = [thirds(y0 - 1), thirds(y0)]
+        for y in range(y0, min(y0 + band, H)):
+            h.append(thirds(y + 1))
+            Ixx, Iyy, Ixy = ((a + b + c) / 3.0 for a, b, c in zip(*h))
+            mean = (Ixx + Iyy) * 0.5
+            d = (Ixx - Iyy) * 0.5
+            out[y] = mean - torch.sqrt(d * d + Ixy * Ixy)
+            h.pop(0)
+    return out
 
 
 class TestMinEig:
@@ -63,6 +103,17 @@ class TestMinEig:
         )
         got = min_eig.min_eig_response(T(img)).numpy()
         np.testing.assert_allclose(got[2:-2, 2:-2], ref[2:-2, 2:-2], rtol=1e-5, atol=1e-3)
+
+    @pytest.mark.parametrize("shape", [(37, 53), (64, 96)])
+    @pytest.mark.parametrize("band", [8, 5])
+    def test_sliding_order_is_the_plain_order(self, band, shape):
+        """The kernel's order of work — band by band with running horizontal
+        thirds, products zero outside the strict interior — gives the plain
+        version's bits on the whole image, with a short last band (37 rows in
+        bands of 8 or 5, 64 rows in bands of 5) and without one."""
+        rng = np.random.default_rng(6)
+        img = T((rng.random(shape) * 255).astype(np.float32))
+        assert torch.equal(_min_eig_response_sliding(img, band), image.min_eig_response(img))
 
     def test_wrapper_uses_plain_on_cpu_and_counts_nothing(self):
         before = min_eig.min_eig_response.launches
@@ -260,8 +311,9 @@ class TestTemplate:
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
 
     def test_level_vs_pallas_kernels(self):
-        """lk_template + lk_iterate of one level vs the two Pallas kernels
-        (``_level_call`` in interpret mode): min_eig 1e-4 relative on
+        """The plain versions of the level kernel's two stages
+        (``lk_template_plain``, ``lk_iterate_plain``) vs the two Pallas
+        kernels (``_level_call`` in interpret mode): min_eig 1e-4 relative on
         textured slots, refined guess 5e-3 px."""
         imgs, xy, valid = _scene(n_frames=2)
         win, iters = 15, 10
@@ -272,8 +324,8 @@ class TestTemplate:
         blk, br0, bc0 = capture.capture_level(T(imgs[0]), T(xy) + PAD, win, search)
         raw_r = T(xy)[:, 1] + PAD - half - 1.0 - br0
         raw_c = T(xy)[:, 0] + PAD - half - 1.0 - bc0
-        Tt, Ix, Iy, st = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-        g, region, rr0, rc0 = lk_kernels.lk_iterate(
+        Tt, Ix, Iy, st = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
+        g, region, rr0, rc0 = lk_kernels.lk_iterate_plain(
             T(imgs[1]), Tt, Ix, Iy, st, T(xy) + PAD, win, search, iters)
 
         N_pad = -(-N // 128) * 128
@@ -319,10 +371,12 @@ class TestIterateCaptures:
     @pytest.mark.parametrize("shape", LEVEL_SHAPES)
     @pytest.mark.parametrize("win,search", WIN_SEARCH)
     def test_level_vs_pallas_track_level(self, win, search, shape):
-        """``lk_template`` + ``lk_iterate`` of one level against
+        """``lk_track_level`` of one level against
         ``pallas_lk._track_level_cached`` in interpret mode, border features
         included. The region handed on is pure extraction: bit-equal after
-        the (Rg, Rg, N) -> (N, Rg, Rg) transpose, origins equal. Positions:
+        the (Rg, Rg, N) -> (N, Rg, Rg) transpose, origins equal. ``ok`` is
+        the same float32 arithmetic: equal on every slot. min_eig: 1e-5
+        relative (summation order; atol 1e-4 for flat windows). Positions:
         1e-3 px on textured slots (same taps and weights; the two differ in
         the association of the blend and in summation order)."""
         H, W = shape
@@ -333,16 +387,16 @@ class TestIterateCaptures:
         pts = np.concatenate([_border_points(H, W), inner.astype(np.float32)])
         guess = (pts + rng.uniform(-0.5, 0.5, pts.shape)).astype(np.float32)
         PAD = lk._pad_for(win, search)
-        half = (win - 1) / 2.0
 
-        blk, br0, bc0 = capture.capture_level(T(img0), T(pts) + PAD, win, search)
-        raw_r = T(pts)[:, 1] + PAD - half - 1.0 - br0
-        raw_c = T(pts)[:, 0] + PAD - half - 1.0 - bc0
-        Tt, Ix, Iy, st = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-        g, region, rr0, rc0 = lk_kernels.lk_iterate(
-            T(img1), Tt, Ix, Iy, st, T(guess) + PAD, win, search, iters)
+        # blocks captured a little off the points, so that some template
+        # windows lie outside their block and ``ok`` clears
+        reach = (lk.region_size(win, search) - win) // 2 + 3
+        drift = rng.uniform(-1.0, 1.0, pts.shape).astype(np.float32) * reach
+        blk, br0, bc0 = capture.capture_level(T(img0), T(pts + drift) + PAD, win, search)
+        g, me, ok, region, rr0, rc0 = lk_kernels.lk_track_level(
+            blk, br0, bc0, T(img1), T(pts), T(guess), win, search, iters)
 
-        ref_g, ref_me, _, (ref_region_t, ref_r0, ref_c0) = pallas_lk._track_level_cached(
+        ref_g, ref_me, ref_ok, (ref_region_t, ref_r0, ref_c0) = pallas_lk._track_level_cached(
             jnp.transpose(jnp.asarray(blk.numpy()), (1, 2, 0)),
             jnp.asarray(br0.numpy()), jnp.asarray(bc0.numpy()),
             jnp.asarray(img1), jnp.asarray(pts), jnp.asarray(guess),
@@ -351,17 +405,71 @@ class TestIterateCaptures:
         assert np.array_equal(rr0.numpy(), np.asarray(ref_r0))
         assert np.array_equal(rc0.numpy(), np.asarray(ref_c0))
         assert np.array_equal(region.numpy(), np.transpose(np.asarray(ref_region_t), (2, 0, 1)))
+        assert ok.dtype == torch.bool
+        assert np.array_equal(ok.numpy(), np.asarray(ref_ok))
+        assert 0 < int(ok.sum()) < ok.numel()
         ref_me = np.asarray(ref_me)
-        np.testing.assert_allclose(st[:, 4].numpy(), ref_me, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(me.numpy(), ref_me, rtol=1e-5, atol=1e-4)
         ok = (ref_me > 1.0) & np.isfinite(np.asarray(ref_g)).all(axis=1)
         assert ok.sum() >= 40
-        np.testing.assert_allclose((g - PAD).numpy()[ok], np.asarray(ref_g)[ok], atol=1e-3)
+        np.testing.assert_allclose(g.numpy()[ok], np.asarray(ref_g)[ok], atol=1e-3)
+        # ... and the template window lies unclipped inside its cached block
+        seen = ok & (np.abs(drift).max(axis=1) < reach - 6)
         # the track found the shift where the whole window lies in the level
         m = win // 2 + 2
-        seen = ok & (pts[:, 0] > m) & (pts[:, 0] < W - 1 - m) & (pts[:, 1] > m) & (pts[:, 1] < H - 1 - m)
+        seen &= (pts[:, 0] > m) & (pts[:, 0] < W - 1 - m) & (pts[:, 1] > m) & (pts[:, 1] < H - 1 - m)
         if seen.any():
             np.testing.assert_allclose(
-                (g - PAD).numpy()[seen] - pts[seen], np.broadcast_to([0.8, -0.6], (seen.sum(), 2)), atol=0.1)
+                g.numpy()[seen] - pts[seen], np.broadcast_to([0.8, -0.6], (seen.sum(), 2)), atol=0.1)
+
+    @pytest.mark.parametrize("win,search", WIN_SEARCH + [(32, 16)])
+    def test_ok_limit_is_what_the_tensor_compare_used(self, win, search):
+        """The kernel gets ``ok``'s upper limit as one float32. Offsets are
+        placed on the float32 values within 1e-6 (and the next few beyond)
+        of both limits: the flag from the float32 limit equals the flag the
+        tracker computed before, ``raw < lim + 0.75`` on a float32 tensor
+        with a Python float, and the plain version's flag at those slots."""
+        Rg = lk.region_size(win, search)
+        lim = lk.template_limit(Rg, win)
+        hi32 = np.float32(lk_kernels.ok_limit(Rg, win))
+        near = []
+        for edge, toward in ((np.float32(-0.75), np.float32(-1e9)), (np.float32(-0.75), np.float32(1e9)),
+                             (hi32, np.float32(-1e9)), (hi32, np.float32(1e9))):
+            v = edge
+            for _ in range(4):
+                near.append(v)
+                v = np.nextafter(v, toward)
+        near += [np.float32(-0.75 + 1e-6), np.float32(-0.75 - 1e-6),
+                 np.float32(lim + 0.75 + 1e-6), np.float32(lim + 0.75 - 1e-6)]
+        raw = T(np.array(near, np.float32))
+        before = (raw > -0.75) & (raw < lim + 0.75)
+        as_float32 = (np.array(near, np.float32) > np.float32(-0.75)) & (np.array(near, np.float32) < hi32)
+        assert np.array_equal(before.numpy(), as_float32)
+        assert 0 < int(before.sum()) < before.numel()
+
+        # The kernel's scalar stage in numpy float32 — raw = (((p + PAD) -
+        # half) - 1) - origin, one rounding per step, then the two float32
+        # compares — against the plain level function, on a sweep of
+        # positions across both limits in steps below one float32 spacing.
+        PAD = lk._pad_for(win, search)
+        half = np.float32((win - 1) / 2.0)
+        origin = 7
+        at = lambda raw0: np.float32(raw0) + 1.0 + half - PAD + origin
+        sweep = np.concatenate([np.linspace(at(e) - 2e-5, at(e) + 2e-5, 101) for e in (-0.75, hi32)])
+        v = sweep.astype(np.float32)
+        u = np.full_like(v, at(3.0))
+        n = v.size
+        raw32 = (((v + np.float32(PAD)) - half) - np.float32(1.0)) - np.float32(origin)
+        assert raw32.dtype == np.float32
+        want = (raw32 > np.float32(-0.75)) & (raw32 < hi32)
+        assert 0 < want[:101].sum() < 101 and 0 < want[101:].sum() < 101
+        rng = np.random.default_rng(13)
+        blk = T(rng.uniform(0, 255, (n, Rg, Rg)).astype(np.float32))
+        level = T(rng.uniform(0, 255, (40, 50)).astype(np.float32))
+        org = torch.full((n,), origin, dtype=torch.int32)
+        pts = T(np.stack([u, v], -1))
+        ok = lk_kernels.lk_track_level(blk, org, org, level, pts, pts.clone(), win, search, 1)[2]
+        assert np.array_equal(ok.numpy(), want)
 
 
 class TestTrackCached:
@@ -413,19 +521,32 @@ class TestTrackCached:
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert all(torch.equal(a, b) for a, b in zip(got, padded))
         blk, r0, c0 = got
+        pts = T(xy)
+        guess = pts + 0.25
+        got_l = lk_kernels.lk_track_level(blk, r0, c0, level, pts, guess, win, search, 3)
+        want_l = lk_kernels.lk_track_level_plain(blk, r0, c0, level, pts, guess, win, search, 3)
+        assert len(got_l) == 6
+        assert all(torch.equal(a, b) for a, b in zip(got_l, want_l))
+        # the level function is the scalar lines, the template's plain
+        # version and the iteration's plain version
         half = (win - 1) / 2.0
         raw_r = center[:, 1] - half - 1.0 - r0
         raw_c = center[:, 0] - half - 1.0 - c0
-        got_t = lk_kernels.lk_template(blk, raw_r, raw_c, win)
-        want_t = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
-        assert all(torch.equal(a, b) for a, b in zip(got_t, want_t))
-        T_, Ix, Iy, st = got_t
-        got_i = lk_kernels.lk_iterate(level, T_, Ix, Iy, st, center, win, search, 3)
-        want_i = lk_kernels.lk_iterate_plain(level, T_, Ix, Iy, st, center, win, search, 3)
-        assert all(torch.equal(a, b) for a, b in zip(got_i, want_i))
-        # the region it hands on is the capture kernel's block, and its loop
-        # is the plain loop on that block
-        assert all(torch.equal(a, b) for a, b in zip(got_i[1:], got))
-        assert torch.equal(got_i[0], lk._iterate(blk, r0, c0, T_, Ix, Iy, st, center, win, 3))
+        T_, Ix, Iy, st = lk_kernels.lk_template_plain(blk, raw_r, raw_c, win)
+        g_p, region, rr0, rc0 = lk_kernels.lk_iterate_plain(
+            level, T_, Ix, Iy, st, guess + PAD, win, search, 3)
+        assert torch.equal(got_l[0], g_p - PAD) and torch.equal(got_l[1], st[:, 4])
+        assert all(torch.equal(a, b) for a, b in zip(got_l[3:], (region, rr0, rc0)))
+        # the region it hands on is the capture kernel's block at the guess,
+        # and its loop is the plain loop on that block
+        assert all(torch.equal(a, b) for a, b in zip(
+            got_l[3:], capture.capture_level(level, guess + PAD, win, search)))
+        assert torch.equal(g_p, lk._iterate(region, rr0, rc0, T_, Ix, Iy, st, guess + PAD, win, 3))
+        # and the tracker's level function is a call of it
+        got_t = lk._track_level_cached(blk, r0, c0, level, pts, guess, win, 3, search)
+        assert all(torch.equal(a, b) for a, b in zip(got_t[:3] + got_t[3], want_l))
+        with pytest.raises(ValueError):
+            lk_kernels.lk_track_level(blk, r0, c0, level, pts, guess, win, search, 3,
+                                      return_template=True)
         assert capture.capture_level.launches == 0
-        assert lk_kernels.lk_template.launches == 0 and lk_kernels.lk_iterate.launches == 0
+        assert lk_kernels.lk_track_level.launches == 0

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from pmv_tpu import config as j_config
 from pmv_tpu.io import kitti as j_kitti
@@ -22,6 +23,12 @@ from pmv_tpu_torch import cli, config
 from pmv_tpu_torch.io import kitti, png, synthetic
 from pmv_tpu_torch.io.prefetch import FramePrefetcher
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline
+
+# One thread: the shapes here are small, several test processes share the
+# machine, and the first multi-threaded call of some CPU operators in a fresh
+# process (torch.sqrt in torch 2.13) has been seen to return wrong values in
+# one thread's share of the tensor.
+torch.set_num_threads(1)
 
 SHAPE = (96, 160)
 FRAMES = 16

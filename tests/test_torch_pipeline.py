@@ -24,6 +24,12 @@ from pmv_tpu_torch import convert
 from pmv_tpu_torch.core.state import FeatureTable, MapState
 from pmv_tpu_torch.pipeline import fused, heuristics, steps
 
+# One thread: the shapes here are small, several test processes share the
+# machine, and the first multi-threaded call of some CPU operators in a fresh
+# process (torch.sqrt in torch 2.13) has been seen to return wrong values in
+# one thread's share of the tensor.
+torch.set_num_threads(1)
+
 H, W, N, M = 96, 160, 128, 512
 CFG = dict(
     lk_levels=2, lk_window=15, lk_iters=6, tile_h=H, tile_w=W,

@@ -21,6 +21,12 @@ from pmv_tpu_torch.solvers import five_point as fp
 from pmv_tpu_torch.solvers import pnp
 from pmv_tpu_torch.solvers import ransac
 
+# One thread: the shapes here are small, several test processes share the
+# machine, and the first multi-threaded call of some CPU operators in a fresh
+# process (torch.sqrt in torch 2.13) has been seen to return wrong values in
+# one thread's share of the tensor.
+torch.set_num_threads(1)
+
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32)
 
 
