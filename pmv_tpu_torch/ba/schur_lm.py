@@ -1,6 +1,6 @@
 """Sliding-window bundle adjustment: Levenberg-Marquardt with Schur
 complement reduction of the landmark blocks — PyTorch counterpart of
-``pmv_tpu/ba/schur_lm.py`` (grid solver only).
+``pmv_tpu/ba/schur_lm.py``.
 
 Replacement for CeresBundleAdjustment.cpp:5-89 (SPARSE_SCHUR, Huber(1.0),
 ``max_iterations`` from config). Parameterization is identical to the
@@ -14,18 +14,28 @@ algebra: landmark Hessian blocks V are (L, 3, 3) and inverted in closed
 form; pose-landmark coupling W is a dense (L, P, 6, 3) tensor (P = window
 size <= ~10); the reduced camera system S is a tiny (6P, 6P) dense solve.
 
-Observations are laid out (P, N) pose-major (slot-aligned windows observe
-each landmark at most once per pose). The landmark blocks are assembled by
-``index_add_`` over the observation -> landmark map; the JAX package's
-one-hot matrix products and their chunking were scatter workarounds of its
-target and are not carried over. ``index_add_`` on a CUDA tensor sums with
-atomics, in no fixed order, so every block is first added into its own
-(landmark, pose) row — one observation at most — and the rows of a landmark
-are then summed over the pose axis in a fixed order: the same inputs give
-the same V/Wc/b_lm bit for bit.
+Two solvers share the damped Schur solve and the LM loop:
+
+- :func:`ba_solve_grid` (the default loop's, ``fused.ba_step``): observations
+  laid out (P, N) pose-major. The JAX package's one-hot matrix products and
+  their chunking were scatter workarounds of its target and are not carried
+  over.
+- :func:`ba_solve` (the modular loop's, ``OdometryPipeline.bundle_adjust``):
+  flat observation arrays (O,), a :class:`BAProblem`; the pose blocks are
+  summed the same way as the landmark blocks.
+
+Both add every block of an observation into its (landmark, pose) row with
+:func:`_sum_rows`, in an order that the inputs fix, and then sum the rows
+over poses (and over landmarks) in a fixed order: the same inputs give the
+same blocks bit for bit on every run, also where a window repeats a
+(landmark, pose) pair. It can: ``MapState.insert`` is a ring, so once it
+wraps, a slot that still carries a reused id names the same landmark as the
+slot it was bound to anew. Masked observations add zeros.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +43,36 @@ from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.linalg import gj_solve
 
 Tensor = torch.Tensor
+
+
+class BAProblem(NamedTuple):
+    """Window BA problem with flat observation arrays.
+
+    tr:        (P, 6)  pose blocks [angle_axis(R^T), -t]
+    lm:        (L, 3)  landmark positions (world frame)
+    obs_uv:    (O, 2)  observed pixels
+    obs_pose:  (O,)    int32 window-pose index per observation
+    obs_lm:    (O,)    int32 landmark index per observation
+    obs_mask:  (O,)    bool  observation is real
+    pose_free: (P,)    bool  pose participates in optimization (the reference
+                       skips global frame 0, CeresBundleAdjustment.cpp:22-23)
+    K:         (3, 3)  intrinsics
+    """
+
+    tr: Tensor
+    lm: Tensor
+    obs_uv: Tensor
+    obs_pose: Tensor
+    obs_lm: Tensor
+    obs_mask: Tensor
+    pose_free: Tensor
+    K: Tensor
+
+
+def _residuals(tr, lm, p: BAProblem) -> Tensor:
+    """Per-observation residual r = observed - predicted, (O, 2)."""
+    pred = geo.ba_project(tr[p.obs_pose.long()], lm[p.obs_lm.long()], p.K)
+    return p.obs_uv - pred
 
 
 def _huber_cost(r2: Tensor, delta: float) -> Tensor:
@@ -67,11 +107,33 @@ def _inv3x3(V: Tensor) -> Tensor:
     return adj * inv_det[..., None, None]
 
 
+def robust_cost(tr, lm, p: BAProblem, delta: float = 1.0) -> Tensor:
+    """Huber cost of the flat problem's real observations."""
+    r = _residuals(tr, lm, p)
+    r2 = torch.sum(r * r, dim=-1)
+    return torch.sum(torch.where(p.obs_mask, _huber_cost(r2, delta), 0.0))
+
+
+def _sum_rows(key: Tensor, vals: Tensor, n_rows: int) -> Tensor:
+    """``zeros(n_rows, C).index_add_(0, key, vals)`` for key (O,) and vals
+    (O, C), summed in an order that the inputs fix on every device
+    (``index_add_`` on a CUDA tensor adds the values of a repeated key with
+    atomics, in no fixed order): the values are sorted stably by key, and
+    ``segment_reduce`` adds the values of each row one after another in
+    their input order, ((0 + x0) + x1) + x2. No host synchronisation (the
+    row lengths are an integer sum, exact in any order)."""
+    lengths = torch.zeros(n_rows, dtype=key.dtype, device=key.device).index_add_(
+        0, key, torch.ones_like(key))
+    return torch.segment_reduce(vals[torch.argsort(key, stable=True)], "sum",
+                                lengths=lengths, unsafe=True)
+
+
 def _residual_jacobians(tr: Tensor, lm_o: Tensor, obs_uv: Tensor, K: Tensor):
     """Residual ``uv - ba_project(tr, X)`` and its Jacobians with respect to
     the pose block and the landmark, per observation of a (P, N) grid: tr
     (P, 6), lm_o (P, N, 3) -> r (P, N, 2), Jp (P, N, 2, 6), Jl (P, N, 2, 3).
-    In closed form (the JAX package takes ``jacfwd`` of the same residual)."""
+    (Flat observations come as N = 1: tr (O, 6), lm_o (O, 1, 3).) In closed
+    form (the JAX package takes ``jacfwd`` of the same residual)."""
     q, dq_daa, R = geo.angle_axis_rotate_jac(tr[:, :3], lm_o + tr[:, None, 3:6])
     z = -q[..., 2]
     fx, fy = K[0, 0], K[1, 1]
@@ -127,13 +189,58 @@ def assemble_blocks_grid(tr, lm, obs_uv, local, obs_mask, pose_free, K, delta):
     # One row per (landmark, pose): 9 of V, 18 of Wc, 3 of b_lm, 1 count.
     pose = torch.arange(P, device=tr.device).repeat_interleave(N)
     count = obs_mask.reshape(P * N, 1).to(tr.dtype)
-    rows = torch.zeros((L * P, 31), dtype=tr.dtype, device=tr.device).index_add_(
-        0, local.reshape(P * N) * P + pose, torch.cat([VV, WW, bl, count], dim=1)
-    ).reshape(L, P, 31)
+    rows = _sum_rows(local.reshape(P * N) * P + pose, torch.cat([VV, WW, bl, count], dim=1),
+                     L * P).reshape(L, P, 31)
     per_lm = rows.sum(dim=1)
     V, b_lm, n_obs = per_lm[:, :9], per_lm[:, 27:30], per_lm[:, 30]
     Wc = rows[:, :, 9:27]
     return U, V.reshape(L, 3, 3), Wc.reshape(L, P, 6, 3), b_pose, b_lm, n_obs > 0
+
+
+def assemble_blocks(tr, lm, obs_uv, obs_pose, obs_lm, obs_mask, pose_free, K, delta):
+    """Assemble the Schur building blocks from flat observations (O,).
+
+    Returns (U (P,6,6), V (L,3,3), Wc (L,P,6,3), b_pose (P,6), b_lm (L,3),
+    has_obs (L,)).
+    """
+    P = tr.shape[0]
+    L = lm.shape[0]
+    O = obs_pose.shape[0]
+    pose = obs_pose.long()
+    r, Jp, Jl = (x[:, 0] for x in _residual_jacobians(
+        tr[pose], lm[obs_lm.long()][:, None], obs_uv[:, None], K))
+    # Masked observations must be inert even when their residual is NaN/Inf
+    # (padded slots index arbitrary pose/landmark pairs, which can divide by
+    # z = 0; NaN * 0-weight is still NaN).
+    r = torch.where(obs_mask[:, None], r, 0.0)
+    Jp = torch.where(obs_mask[:, None, None], Jp, 0.0)
+    Jl = torch.where(obs_mask[:, None, None], Jl, 0.0)
+
+    r2 = torch.sum(r * r, dim=-1)
+    w = geo.huber_weight(r2, delta) * obs_mask  # IRLS weights (O,)
+    # A fixed pose contributes no pose Jacobian, but its observations still
+    # constrain the landmarks.
+    Jp = Jp * pose_free[pose][:, None, None]
+    wJp = Jp * w[:, None, None]
+    wJl = Jl * w[:, None, None]
+
+    # Per observation: 9 of V, 18 of Wc, 3 of b_lm, 1 count, 36 of U, 6 of
+    # b_pose (the minus of b folded in: H delta = -J^T w r).
+    vals = torch.cat([
+        torch.einsum("oik,oij->okj", wJl, Jl).reshape(O, 9),
+        torch.einsum("oik,oij->okj", wJp, Jl).reshape(O, 18),
+        -torch.einsum("oik,oi->ok", wJl, r),
+        obs_mask[:, None].to(tr.dtype),
+        torch.einsum("oik,oij->okj", wJp, Jp).reshape(O, 36),
+        -torch.einsum("oik,oi->ok", wJp, r),
+    ], dim=1)
+    rows = _sum_rows(obs_lm.long() * P + pose, vals, L * P).reshape(L, P, 73)
+    per_lm = rows[:, :, :31].sum(dim=1)
+    per_pose = rows[:, :, 31:].sum(dim=0)
+    V, b_lm, n_obs = per_lm[:, :9], per_lm[:, 27:30], per_lm[:, 30]
+    Wc = rows[:, :, 9:27]
+    return (per_pose[:, :36].reshape(P, 6, 6), V.reshape(L, 3, 3), Wc.reshape(L, P, 6, 3),
+            per_pose[:, 36:], b_lm, n_obs > 0)
 
 
 def schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam):
@@ -262,3 +369,40 @@ def ba_solve_grid(
         return _cost_grid(tr_c, lm_c, obs_uv, local, obs_mask, K, delta)
 
     return _lm_loop(tr, lm, lam0, iters, step_fn, cost_fn)
+
+
+def _lm_step(tr, lm, p: BAProblem, lam, delta: float):
+    """One damped LM step. Returns (tr_new, lm_new)."""
+    U, V, Wc, b_pose, b_lm, has_obs = assemble_blocks(
+        tr, lm, p.obs_uv, p.obs_pose, p.obs_lm, p.obs_mask, p.pose_free, p.K, delta
+    )
+    dp, dx = schur_solve(U, V, Wc, b_pose, b_lm, has_obs, p.pose_free, lam)
+    return tr + dp * p.pose_free[:, None], lm + dx
+
+
+def ba_solve(
+    p: BAProblem,
+    iters: int = 5,
+    delta: float = 1.0,
+    lam0: float = 1e-4,
+    obs_gate_px: float = 0.0,
+):
+    """Run ``iters`` LM iterations over the flat problem (the config's
+    ``max_iterations``, matching CeresBundleAdjustment.cpp:59). Returns (tr,
+    lm, stats).
+
+    ``obs_gate_px`` > 0 drops observations whose INITIAL reprojection
+    residual exceeds the gate before solving (the reference has no such
+    gate: 0 for strict parity)."""
+    if obs_gate_px > 0:
+        r0 = _residuals(p.tr, p.lm, p)
+        ok = torch.sum(r0 * r0, dim=-1) < obs_gate_px * obs_gate_px
+        p = p._replace(obs_mask=p.obs_mask & ok)
+
+    def step_fn(tr, lm, lam):
+        return _lm_step(tr, lm, p, lam, delta)
+
+    def cost_fn(tr, lm):
+        return robust_cost(tr, lm, p, delta)
+
+    return _lm_loop(p.tr, p.lm, lam0, iters, step_fn, cost_fn)

@@ -6,6 +6,9 @@ by ``pmv_tpu``'s field names (``table.xy``, ``map.alive``, ``R_hist``,
 ``tbl_lm_hist``, ``blocks.<lvl>.region|r0|c0``, ...). This module imports no
 JAX: whoever holds the JAX state does the ``np.asarray`` on that side.
 
+With ``matcher=knn`` the JAX package's ``blocks`` is ``((image,),)``, the
+previous level-0 image; it travels as ``blocks.0.image``.
+
 LK blocks are accepted in either layout of the JAX package — feature-major
 ``(N, Rg, Rg)`` (``lucas_kanade.capture_blocks``) or feature-lanes
 ``(Rg, Rg, N)`` (``pallas_lk.capture_blocks``) — and stored ``(N, Rg, Rg)``.
@@ -54,18 +57,19 @@ def _region(a: np.ndarray, n: int) -> np.ndarray:
 def state_from_reference(d: dict[str, np.ndarray], device) -> StepState:
     """Build a :class:`StepState` on ``device`` from the flat dict."""
     n = np.asarray(d["table.xy"]).shape[0]
-    levels = sorted(
-        {int(k.split(".")[1]) for k in d if k.startswith("blocks.")}
-    )
-    blocks = tuple(
-        (
-            torch.from_numpy(_region(d[f"blocks.{l}.region"], n).astype(np.float32))
-            .to(device).contiguous(),
-            torch.from_numpy(np.array(d[f"blocks.{l}.r0"])).to(device, torch.int32),
-            torch.from_numpy(np.array(d[f"blocks.{l}.c0"])).to(device, torch.int32),
+    if "blocks.0.image" in d:
+        blocks = ((_tensor(d, "blocks.0.image", device),),)
+    else:
+        levels = sorted({int(k.split(".")[1]) for k in d if k.startswith("blocks.")})
+        blocks = tuple(
+            (
+                torch.from_numpy(_region(d[f"blocks.{l}.region"], n).astype(np.float32))
+                .to(device).contiguous(),
+                torch.from_numpy(np.array(d[f"blocks.{l}.r0"])).to(device, torch.int32),
+                torch.from_numpy(np.array(d[f"blocks.{l}.c0"])).to(device, torch.int32),
+            )
+            for l in levels
         )
-        for l in levels
-    )
     table = FeatureTable(*(_tensor(d, f"table.{f}", device) for f in _TABLE))
     map_state = MapState(*(_tensor(d, f"map.{f}", device) for f in _MAP))
     rest = {k: _tensor(d, k, device) for k in _PLAIN if k in d}
@@ -81,10 +85,13 @@ def state_from_reference(d: dict[str, np.ndarray], device) -> StepState:
 def state_to_numpy(state: StepState) -> dict[str, np.ndarray]:
     """The inverse of :func:`state_from_reference` (blocks feature-major)."""
     out: dict[str, np.ndarray] = {}
-    for l, (region, r0, c0) in enumerate(state.blocks):
-        out[f"blocks.{l}.region"] = region.cpu().numpy()
-        out[f"blocks.{l}.r0"] = r0.cpu().numpy()
-        out[f"blocks.{l}.c0"] = c0.cpu().numpy()
+    if len(state.blocks[0]) == 1:  # matcher=knn: the previous level-0 image
+        out["blocks.0.image"] = state.blocks[0][0].cpu().numpy()
+    else:
+        for l, (region, r0, c0) in enumerate(state.blocks):
+            out[f"blocks.{l}.region"] = region.cpu().numpy()
+            out[f"blocks.{l}.r0"] = r0.cpu().numpy()
+            out[f"blocks.{l}.c0"] = c0.cpu().numpy()
     for f in _TABLE:
         out[f"table.{f}"] = getattr(state.table, f).cpu().numpy()
     for f in _MAP:

@@ -5,9 +5,15 @@ Replacement for the reference's per-tile extractor calls: ``getGridROI``
 splits the frame into 255x255 tiles (OdometryPipeline.cpp:674-693) and runs
 ``cv::goodFeaturesToTrack`` per tile (OpenCVGoodFeatureExtractor.cpp:4-21:
 quality 0.01, min-distance 5). Here the whole frame's response is computed
-once (the ``min_eig_response`` kernel), non-max/min-distance suppression is
-a windowed max, and per-tile top-k gives the same spatial spreading with a
-fixed (n_tiles * k) candidate capacity.
+once, non-max/min-distance suppression is a windowed max, and per-tile
+top-k gives the same spatial spreading with a fixed (n_tiles * k) candidate
+capacity.
+
+Responses: ``min_eig`` (the ``min_eig_response`` kernel), ``min_eig_xla``
+(the same wrapper: in the JAX package it is the XLA response, used where a
+Pallas call cannot run under ``vmap``; here there is one route), ``harris``
+and ``fast`` (threshold 10), both plain PyTorch as they are jnp in the JAX
+package.
 
 Ties: candidates are ranked with a stable descending sort, so that among
 equal responses the lowest index wins, as ``lax.top_k`` does in the JAX
@@ -19,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pmv_tpu_torch.frontend import min_eig
+from pmv_tpu_torch.frontend import fast, image, min_eig
 
 Tensor = torch.Tensor
 
@@ -54,13 +60,15 @@ def grid_extract(
     with candidate capacity C = n_tiles * n_per_tile, ordered tile-major then
     score-descending within each tile.
     """
-    if response != "min_eig":
-        raise NotImplementedError(
-            f"corner response {response!r} is not ported yet (extractor=fast "
-            "needs frontend/fast.py); only 'min_eig' is"
-        )
     H, W = img.shape
-    resp = min_eig.min_eig_response(img)
+    if response in ("min_eig", "min_eig_xla"):
+        resp = min_eig.min_eig_response(img)
+    elif response == "harris":
+        resp = image.harris_response(img)
+    elif response == "fast":
+        resp = fast.fast_response(img, threshold=10.0)
+    else:
+        raise ValueError(f"unknown response {response!r}")
 
     # Non-max + min-distance suppression: a corner survives iff it is the
     # windowed max of its (2*min_distance+1)^2 neighborhood.

@@ -62,6 +62,15 @@ def min_eig_response(img: Tensor) -> Tensor:
     return mean - rad
 
 
+def harris_response(img: Tensor, k: float = 0.04) -> Tensor:
+    """Classic Harris corner response det - k*trace^2 (the commented-out
+    alternative at ShiTomasiFeatureExtractor.cpp:70)."""
+    Ixx, Iyy, Ixy = structure_tensor(img)
+    det = Ixx * Iyy - Ixy * Ixy
+    tr = Ixx + Iyy
+    return det - k * tr * tr
+
+
 def downsample2(img: Tensor) -> Tensor:
     """2x downsample with a 2x2 average (pyramid level step). Odd trailing
     row/col are dropped."""

@@ -27,6 +27,12 @@ kernels and the pyramid logic around them:
 - :func:`_iterate`          — the loop of ``lk_kernels.lk_iterate_plain``, the
   plain version of its iteration stage
 
+The uncached tracker :func:`track` (the modular loop's, ``run_modular``) is
+plain PyTorch on every device, as it is jnp in the JAX package: per level it
+edge-pads both images, samples a fresh template window from the previous one
+(clipped to the padded image) and iterates in a region of the new one. It
+launches no kernel.
+
 :func:`_track_level_cached` and :func:`capture_blocks` call the wrappers in
 ``lk_kernels`` / ``capture``, which launch the kernels for CUDA tensors and
 fall through to the plain versions for CPU tensors. (Those modules import
@@ -41,6 +47,8 @@ Convention: feature positions are (u=column, v=row) float32 pixels.
 from __future__ import annotations
 
 import torch
+
+from pmv_tpu_torch.frontend.image import _pad_edge
 
 Tensor = torch.Tensor
 
@@ -62,6 +70,17 @@ def region_size(win: int, search: int) -> int:
 
 def _resolve_search(win: int, search: int | None) -> int:
     return max(4, win // 2) if search is None else search
+
+
+def _slice_blocks(img: Tensor, r0: Tensor, c0: Tensor, size: int) -> Tensor:
+    """(N,) integer top-left corners -> (N, size, size) blocks of ``img``;
+    starts are clamped so that the block stays in bounds (as
+    ``lax.dynamic_slice`` clamps them in the JAX package)."""
+    H, W = img.shape
+    r0 = torch.clamp(r0.long(), 0, H - size)
+    c0 = torch.clamp(c0.long(), 0, W - size)
+    ar = torch.arange(size, device=img.device)
+    return img[(r0[:, None] + ar)[:, :, None], (c0[:, None] + ar)[:, None, :]]
 
 
 def _sample_window(region: Tensor, lr: Tensor, lc: Tensor, win: int) -> Tensor:
@@ -148,10 +167,7 @@ def _capture_region(img_padded: Tensor, center: Tensor, win: int, search: int):
     (region (N, Rg, Rg), r0, c0)."""
     Rg = region_size(win, search)
     r0, c0 = block_origins(img_padded.shape, center, win, search)
-    ar = torch.arange(Rg, device=img_padded.device)
-    rows = (r0.long()[:, None] + ar)[:, :, None]
-    cols = (c0.long()[:, None] + ar)[:, None, :]
-    return img_padded[rows, cols], r0, c0
+    return _slice_blocks(img_padded, r0, c0, Rg), r0, c0
 
 
 def _iterate(region, reg_r0, reg_c0, T, Ix, Iy, stats, guess_padded,
@@ -263,3 +279,85 @@ def track_cached(
     )
     status = valid & inside & ok_all & (min_eig0 > min_eig_threshold)
     return new_pts, status, tuple(reversed(new_blocks))
+
+
+def _track_level(
+    prev_img: Tensor,
+    next_img: Tensor,
+    pts_level: Tensor,
+    guess: Tensor,
+    win: int,
+    iters: int,
+    search: int,
+) -> tuple[Tensor, Tensor]:
+    """One pyramid level of LK with a fresh template. Returns (new guess
+    (N, 2), min_eig (N,))."""
+    # Pad all sides so every slice window fits regardless of feature
+    # position (border behaviour = edge replication); pixel coordinates
+    # shift by PAD.
+    PAD = _pad_for(win, search)
+    prev_img = _pad_edge(prev_img, PAD)
+    next_img = _pad_edge(next_img, PAD)
+    H, W = prev_img.shape
+    half = (win - 1) / 2.0
+
+    # --- template: fractional (win+2, win+2) window around pts, then T and
+    # central-difference gradients ---
+    TS = win + 4  # template block: win+2 sampled window + 2-tap margin
+    tl_r = pts_level[:, 1] + PAD - half - 1.0
+    tl_c = pts_level[:, 0] + PAD - half - 1.0
+    tr0 = torch.clamp(torch.floor(tl_r), 0, H - TS)
+    tc0 = torch.clamp(torch.floor(tl_c), 0, W - TS)
+    base = _slice_blocks(prev_img, tr0.long(), tc0.long(), TS)
+    F = _sample_window(
+        base,
+        torch.clamp(tl_r - tr0, 0.0, 1.0),
+        torch.clamp(tl_c - tc0, 0.0, 1.0),
+        win + 2,
+    )  # (N, win+2, win+2)
+    T, Ix, Iy, Gxx, Gxy, Gyy, inv_det, min_eig = _template_stats(F, win)
+
+    # --- search region in the next image, loaded once per level ---
+    region, reg_r0, reg_c0 = _capture_region(next_img, guess + PAD, win, search)
+    stats = torch.stack([Gxx, Gxy, Gyy, inv_det, min_eig], dim=-1)
+    g = _iterate(region, reg_r0, reg_c0, T, Ix, Iy, stats, guess + PAD, win, iters)
+    return g - PAD, min_eig
+
+
+def track(
+    prev_pyr,
+    next_pyr,
+    pts: Tensor,
+    valid: Tensor,
+    win: int = 32,
+    iters: int = 10,
+    min_eig_threshold: float = 1e-4,
+    search: int | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Track (N, 2) points from prev to next through the pyramids, with a
+    fresh template per level.
+
+    Returns (new_pts (N, 2), status (N,) bool). Status clears when the point
+    leaves the image or the normal matrix is degenerate (untextured window).
+    """
+    levels = len(prev_pyr)
+    H, W = prev_pyr[0].shape
+    search = _resolve_search(win, search)
+    guess = pts / 2.0 ** (levels - 1)
+    min_eig0 = torch.zeros(pts.shape[0], dtype=pts.dtype, device=pts.device)
+    for lvl in range(levels - 1, -1, -1):
+        s = 2.0 ** lvl
+        guess, min_eig0 = _track_level(
+            prev_pyr[lvl], next_pyr[lvl], pts / s, guess, win, iters, search
+        )
+        if lvl > 0:
+            guess = guess * 2.0
+    new_pts = guess
+    inside = (
+        (new_pts[:, 0] >= 0)
+        & (new_pts[:, 0] <= W - 1)
+        & (new_pts[:, 1] >= 0)
+        & (new_pts[:, 1] <= H - 1)
+    )
+    status = valid & inside & (min_eig0 > min_eig_threshold)
+    return new_pts, status

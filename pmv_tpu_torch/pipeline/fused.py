@@ -1,11 +1,13 @@
 """The per-frame step of the default odometry loop — PyTorch counterpart of
 ``pmv_tpu/pipeline/fused.py``.
 
-Per frame: pyramid build, batched LK tracking from cached blocks,
-conditional reseed, PnP-vs-bootstrap pose, landmark bookkeeping, motion
-gate; bundle adjustment at its cadence. Everything stays on the device; the
-host reads back two integers per frame (tracked features, live 3D points) to
-take the two branches the JAX package expresses as ``lax.cond``:
+Per frame: pyramid build, batched LK tracking from cached blocks (or, with
+``matcher=knn``, fresh corners and patch-SSD association against the
+previous level-0 image), conditional reseed, PnP-vs-bootstrap pose,
+landmark bookkeeping, motion gate; bundle adjustment at its cadence.
+Everything stays on the device; the host reads back two integers per frame
+(tracked features, live 3D points) to take the two branches the JAX package
+expresses as ``lax.cond``:
 
 - reseed iff ``tracked < reseed_tol``;
 - ``count3DPoints >= tracked_tol`` selects RANSAC PnP, otherwise the
@@ -29,7 +31,7 @@ import torch
 from pmv_tpu_torch.ba import schur_lm
 from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.state import FeatureTable, MapState, scatter_rows
-from pmv_tpu_torch.frontend import corners
+from pmv_tpu_torch.frontend import corners, knn_matcher
 from pmv_tpu_torch.frontend import lucas_kanade as lk
 from pmv_tpu_torch.frontend.image import build_pyramid
 from pmv_tpu_torch.pipeline import steps
@@ -62,12 +64,17 @@ class StepConfig(NamedTuple):
     pnp_hypos: int = 128
     pnp_thresh: float = 8.0
     response: str = "min_eig"  # corner response (extractor preset)
-    essential_solver: str = "five_point"  # only five_point is ported
-    matcher: str = "lk"  # only lk is ported
-    knn_k: int = 7
-    knn_window: int = 15
-    knn_threshold: float = 2.0
-    knn_cand_per_tile: int = 101
+    essential_solver: str = "five_point"  # five_point | eight_point
+    matcher: str = "lk"  # lk | knn. knn = the reference's alternate
+    # patch-SSD matcher (kNNFeatureMatcher.cpp): fresh corners every frame
+    # + k-nearest SSD association (BASELINE.json config #3). In knn mode
+    # StepState.blocks carries the previous level-0 image instead of LK
+    # region blocks.
+    knn_k: int = 7  # spatial nearest neighbors (kNNFeatureMatcher.h:28)
+    knn_window: int = 15  # SSD patch side (kNNFeatureMatcher.h:10)
+    knn_threshold: float = 2.0  # SSD accept threshold (kNNFeatureMatcher.h:11)
+    knn_cand_per_tile: int = 101  # fresh corners per tile (~1000/frame,
+    # kNNFeatureMatcher.cpp:3-10)
     bundle_size: int = 5
     ba_iters: int = 5
     ba_obs_gate_px: float = 0.0  # initial-residual observation gate (px)
@@ -94,7 +101,8 @@ class StepState(NamedTuple):
     histories live on device so the whole run ends in one readback."""
 
     blocks: tuple  # per-level (region (N,Rg,Rg), r0 (N,), c0 (N,)) LK blocks
-    # of the current frame — the next track's template source
+    # of the current frame — the next track's template source; with
+    # matcher=knn ((level-0 image,),)
     table: FeatureTable
     map: MapState
     R: Tensor  # (3, 3) current world pose
@@ -119,19 +127,9 @@ class StepState(NamedTuple):
 
 def check_ported(cfg: StepConfig) -> None:
     """Raise for the configurations whose code is not ported yet."""
-    if cfg.matcher != "lk":
-        raise NotImplementedError(
-            f"matcher={cfg.matcher!r}: only the LK matcher is ported; matcher=knn "
-            "(frontend/fast.py, frontend/knn_matcher.py) is not ported yet"
-        )
     if cfg.cont_tri:
         raise NotImplementedError(
             "cont_tri=1: continuous triangulation is not ported yet"
-        )
-    if cfg.essential_solver != "five_point":
-        raise NotImplementedError(
-            f"essential_solver={cfg.essential_solver!r}: only five_point is "
-            "ported; the 8-point RANSAC is not ported yet"
         )
 
 
@@ -146,7 +144,11 @@ def init_state(pyr, table: FeatureTable, map_state: MapState, cfg: StepConfig) -
     dev = table.xy.device
     T = cfg.traj_cap
     eye = torch.eye(3, dtype=torch.float32, device=dev)
-    blocks = lk.capture_blocks(tuple(pyr), table.xy, win=cfg.lk_window, search=_search(cfg))
+    if cfg.matcher == "knn":
+        # kNN matching needs only the previous level-0 image.
+        blocks = ((pyr[0],),)
+    else:
+        blocks = lk.capture_blocks(tuple(pyr), table.xy, win=cfg.lk_window, search=_search(cfg))
     tbl_xy_hist = torch.zeros((T, N, 2), dtype=torch.float32, device=dev)
     tbl_valid_hist = torch.zeros((T, N), dtype=torch.bool, device=dev)
     tbl_lm_hist = torch.full((T, N), -1, dtype=torch.int32, device=dev)
@@ -191,10 +193,10 @@ def frame_step(
     source frame, OpenCVFivePointTri.cpp:51).
 
     ``gen`` feeds the RANSAC draw of whichever pose branch runs; ``samples``
-    ((H, 6) on a PnP frame, (H, 5) on a bootstrap frame), when given,
-    replaces that draw. ``stats``: ``tracked``, ``n3d`` (ints), ``used_pnp``,
-    ``reseed`` (bools), ``inliers``, ``accepted`` (0-d tensors, left on the
-    device).
+    ((H, 6) on a PnP frame, (H, 5) on a bootstrap frame, (H, 8) with
+    ``essential_solver=eight_point``), when given, replaces that draw.
+    ``stats``: ``tracked``, ``n3d`` (ints), ``used_pnp``, ``reseed``
+    (bools), ``inliers``, ``accepted`` (0-d tensors, left on the device).
     """
     if steady:
         raise NotImplementedError(
@@ -203,18 +205,37 @@ def frame_step(
     check_ported(cfg)
     dev = next_img.device
     N = state.table.capacity
-    next_pyr = build_pyramid(next_img, cfg.lk_levels)
+    knn = cfg.matcher == "knn"
+    # kNN reads level 0 only (the JAX package builds the other levels and
+    # XLA drops them unused)
+    next_pyr = build_pyramid(next_img, 0 if knn else cfg.lk_levels)
 
-    tracked_table, new_blocks = steps.track_step_cached(
-        state.blocks, next_pyr, state.table,
-        win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
-    )
+    if knn:
+        # Alternate matcher (kNNFeatureMatcher.cpp): fresh corners every
+        # frame + k-nearest patch-SSD association; the previous level-0
+        # image rides in blocks[0][0].
+        kc_xy, _, kc_valid = corners.grid_extract(
+            next_pyr[0], cfg.knn_cand_per_tile,
+            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+            quality=cfg.quality, min_distance=cfg.min_distance,
+            response=cfg.response,
+        )
+        tracked_table = knn_matcher.knn_match(
+            state.blocks[0][0], next_pyr[0], state.table, kc_xy, kc_valid,
+            k=cfg.knn_k, window=cfg.knn_window, threshold=cfg.knn_threshold,
+        )
+        new_blocks = ((next_pyr[0],),)
+    else:
+        tracked_table, new_blocks = steps.track_step_cached(
+            state.blocks, next_pyr, state.table,
+            win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
+        )
     # The one host read-back of the frame: both branch conditions at once.
     tracked, n3d = torch.stack(
         [tracked_table.num_valid(), state.table.count_3d(state.map.alive)]
     ).tolist()
 
-    # --- reseed: extraction, merge AND block recapture ---
+    # --- reseed: extraction, merge AND block recapture (kNN: no capture) ---
     reseed_tol = cfg.reseed_tol if cfg.reseed_tol > 0 else cfg.tracked_tol
     fire = tracked < reseed_tol
     next_table = tracked_table
@@ -229,10 +250,11 @@ def frame_step(
             tracked_table, cand_xy, cand_score, cand_valid,
             min_distance=cfg.min_distance,
         )
-        # Reseeded slots moved: the cached blocks no longer cover them.
-        new_blocks = lk.capture_blocks(
-            next_pyr, next_table.xy, win=cfg.lk_window, search=_search(cfg)
-        )
+        if not knn:
+            # Reseeded slots moved: the cached blocks no longer cover them.
+            new_blocks = lk.capture_blocks(
+                next_pyr, next_table.xy, win=cfg.lk_window, search=_search(cfg)
+            )
 
     # --- pose: PnP vs essential-matrix bootstrap ---
     is_pnp = n3d >= cfg.tracked_tol
@@ -250,11 +272,17 @@ def frame_step(
         src_table = src
     else:
         corr = src.valid & next_table.valid
-        E, inl = find_essential_5pt_ransac(
-            src.xy, next_table.xy, corr, K, gen,
-            n_hypos=ransac_budget(cfg.e_hypos), thresh_px=cfg.e_thresh,
-            samples=samples,
-        )
+        if cfg.essential_solver == "five_point":
+            E, inl = find_essential_5pt_ransac(
+                src.xy, next_table.xy, corr, K, gen,
+                n_hypos=ransac_budget(cfg.e_hypos), thresh_px=cfg.e_thresh,
+                samples=samples,
+            )
+        else:
+            E, inl = essential.find_essential_ransac(
+                src.xy, next_table.xy, corr, K, gen,
+                n_hypos=cfg.e_hypos, thresh_px=cfg.e_thresh, samples=samples,
+            )
         R_d, t_unit, X_tri, front = essential.recover_pose(E, src.xy, next_table.xy, inl, K)
         t_d = t_unit * gt_step
         scale = gt_step

@@ -13,8 +13,13 @@ motion gate -> periodic sliding-window bundle adjustment -> ground-truth
 error metrics written in the reference's exact error-file format
 (:267-296).
 
-Heavy compute runs on ``device`` (pmv_tpu_torch.pipeline.fused); the host
-loop decodes, uploads chunks of uint8 frames and keeps the books.
+Two loops: :meth:`OdometryPipeline.run` (chunks of frames through
+pmv_tpu_torch.pipeline.fused, the heavy compute on ``device``; the host loop
+decodes, uploads chunks of uint8 frames and keeps the books) and
+:meth:`OdometryPipeline.run_modular`, the reference-shaped loop of per-stage
+calls (``add_frame``, ``estimate_pose``, ``bundle_adjust``) with the
+uncached tracker and the flat bundle adjustment, which reads back a few
+scalars per frame to take its branches.
 """
 
 from __future__ import annotations
@@ -27,13 +32,18 @@ import numpy as np
 import torch
 
 from pmv_tpu_torch import resolve_device
+from pmv_tpu_torch.ba.schur_lm import BAProblem, ba_solve
 from pmv_tpu_torch.config import OdometryPipelineException, VOConfig
+from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.state import FeatureTable, MapState
-from pmv_tpu_torch.frontend import corners
+from pmv_tpu_torch.frontend import corners, knn_matcher
 from pmv_tpu_torch.frontend.image import build_pyramid
 from pmv_tpu_torch.io import kitti
 from pmv_tpu_torch.io.prefetch import FramePrefetcher
-from pmv_tpu_torch.pipeline import fused
+from pmv_tpu_torch.pipeline import fused, steps
+from pmv_tpu_torch.pipeline.heuristics import motion_gate
+from pmv_tpu_torch.solvers import essential, pnp
+from pmv_tpu_torch.solvers.five_point import find_essential_5pt_ransac, ransac_budget
 
 
 class OdometryPipeline:
@@ -68,7 +78,13 @@ class OdometryPipeline:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(cfg.seed)
         self._ba_calls = 0  # actual BA invocations this run
-        self.frame_stats: list[dict] = []  # per tracked frame, filled by run()
+        self.ba_overflow = 0  # BA windows of run() that saturated ba_lm_cap
+        self._ba_cadence = (
+            cfg.ba_cadence if cfg.ba_cadence > 0 else max(1, cfg.bundle_size // 3 * 2)
+        )
+        self._prev_pyr = None  # the modular loop's previous pyramid
+        self._watch: list[float] = []  # tick/tock stack of the verbose stage times
+        self.frame_stats: list[dict] = []  # per tracked frame, filled by both loops
 
     # ------------------------------------------------------------------
     # helpers
@@ -77,6 +93,16 @@ class OdometryPipeline:
     def _log(self, *args):
         if self.cfg.verbose:
             print(*args, flush=True)
+
+    def _tick(self) -> None:
+        self._watch.append(time.perf_counter())
+
+    def _tock(self) -> float:
+        """Seconds since the matching :meth:`_tick`, the device drained first
+        (the stage times the reference prints under verbose)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - self._watch.pop()
 
     def _n_tiles(self, shape) -> int:
         H, W = shape
@@ -150,6 +176,214 @@ class OdometryPipeline:
         self._log(
             f"Initialised using {int(top_valid.sum())} features from frame #{i}"
         )
+
+    # ------------------------------------------------------------------
+    # per-frame ingest (addFrame, OdometryPipeline.cpp:329-374)
+    # ------------------------------------------------------------------
+
+    def _pyramid(self, img: np.ndarray) -> list[torch.Tensor]:
+        """The frame's pyramid on the device; level 0 only for the kNN
+        matcher, which reads nothing else."""
+        levels = 0 if self.cfg.matcher == "knn" else self.cfg.lk_levels
+        return build_pyramid(torch.as_tensor(img, dtype=torch.float32).to(self.device), levels)
+
+    def add_frame(self, img: np.ndarray) -> int:
+        """Match the previous frame's features into ``img`` and reseed when
+        too few were matched; appends the frame's table. Returns its index."""
+        cfg = self.cfg
+        pyr = self._pyramid(img)
+        k = len(self.tables)
+        if cfg.verbose:
+            self._tick()
+        if cfg.matcher == "knn":
+            # Alternate matcher (kNNFeatureMatcher.cpp semantics): fresh
+            # corners in the new frame + patch-SSD association. Like the
+            # JAX package's modular branch, the candidates take the default
+            # (min-eig) response with quality_level / min_distance, not the
+            # extractor preset.
+            cand_xy, _, cand_valid = corners.grid_extract(
+                pyr[0], 1000 // max(1, self._n_tiles(img.shape)) + 1,
+                tile_h=cfg.grid_rows, tile_w=cfg.grid_cols,
+                quality=cfg.quality_level, min_distance=cfg.min_distance,
+            )
+            table = knn_matcher.knn_match(
+                self._prev_pyr[0], pyr[0], self.tables[k - 1], cand_xy, cand_valid
+            )
+        else:
+            table = steps.track_step(
+                self._prev_pyr, pyr, self.tables[k - 1],
+                win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
+            )
+        tracked = int(table.num_valid())
+        if cfg.verbose:
+            # Per-stage timing like the reference's verbose printouts
+            # (OdometryPipeline.cpp:334-340).
+            self._log(f"{self._tock():.6g} seconds for feature matching in frame #{k}")
+        reseed = tracked < (cfg.reseed_tol if cfg.reseed_tol > 0 else cfg.tracked_features_tol)
+        if reseed:
+            n_tiles = self._n_tiles(img.shape)
+            n_per_tile = max(1, math.ceil(cfg.min_tracked_features / n_tiles))
+            if cfg.verbose:
+                self._tick()
+            self._log(f"Trying to find {cfg.min_tracked_features} new features in frame #{k}")
+            table = steps.reseed_step(
+                table, pyr[0], n_per_tile,
+                tile_h=cfg.grid_rows, tile_w=cfg.grid_cols, **cfg.extractor_preset(),
+            )
+            if cfg.verbose:
+                # OdometryPipeline.cpp:369-370.
+                self._log(f"Feature extraction took {self._tock():.6g} seconds")
+        self.tables.append(table)
+        self._prev_pyr = pyr
+        self.frame_stats.append({"tracked": tracked, "reseed": reseed})
+        return k
+
+    # ------------------------------------------------------------------
+    # pose estimation (estimatePose, OdometryPipeline.cpp:376-426)
+    # ------------------------------------------------------------------
+
+    def _f32(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(self.device)
+
+    def estimate_pose(self, j: int) -> None:
+        """Estimate the pose of frame j+1 from the pair (j, j+1)."""
+        cfg = self.cfg
+        if cfg.verbose:
+            self._tick()
+        src = self.tables[j]
+        nxt = self.tables[j + 1]
+        R_j, t_j = self._f32(self.R[j]), self._f32(self.t[j])
+        R_s_j, t_s_j = self._f32(self.R_s[j]), self._f32(self.t_s[j])
+
+        n3d = int(steps.count_3d(src, self.map))
+        used_pnp = n3d >= cfg.tracked_features_tol
+        if used_pnp:
+            X_std, uv, mask, lm_slots = steps.pnp_inputs(src, nxt, self.map, R_j, t_j)
+            # Guess: last accepted relative delta (better-conditioned than
+            # the reference's global-pose guess at OpenCVEPnPSolver.cpp:10).
+            R_delta, t_delta, inliers = pnp.solve_pnp_ransac(
+                X_std, uv, mask, self.K, self._gen, R_s_j, t_s_j,
+                n_hypos=cfg.ransac_pnp_hypos, thresh_px=cfg.ransac_pnp_thresh,
+            )
+            self.map = steps.kill_outlier_landmarks(self.map, lm_slots, mask, inliers)
+            n_inl = torch.sum(inliers)
+            if cfg.verbose:
+                self._log(f"frame {j}: PnP with {n3d} 3D points, {int(n_inl)} inliers")
+        else:
+            if cfg.verbose:
+                self._tick()
+            corr = src.valid & nxt.valid
+            if cfg.essential_solver == "five_point":
+                E, inl = find_essential_5pt_ransac(
+                    src.xy, nxt.xy, corr, self.K, self._gen,
+                    n_hypos=ransac_budget(cfg.ransac_e_hypos),
+                    thresh_px=cfg.ransac_e_thresh,
+                )
+            else:
+                E, inl = essential.find_essential_ransac(
+                    src.xy, nxt.xy, corr, self.K, self._gen,
+                    n_hypos=cfg.ransac_e_hypos, thresh_px=cfg.ransac_e_thresh,
+                )
+            R_delta, t_unit, X_tri, front = essential.recover_pose(E, src.xy, nxt.xy, inl, self.K)
+            # Absolute scale from ground truth (OpenCVFivePointTri.cpp:28-34).
+            g = j + self.init_offset
+            self.scale = float(np.linalg.norm(self.gt_t[g + 1] - self.gt_t[g]))
+            t_delta = t_unit * self.scale
+            good = inl & front
+            src2, nxt2, self.map = steps.register_triangulated(
+                src, nxt, self.map, X_tri, good, self._f32(self.scale), R_j, t_j,
+            )
+            self.tables[j] = src2
+            self.tables[j + 1] = nxt2
+            n_inl = torch.sum(good)
+            if cfg.verbose:
+                self._log(f"frame {j}: triangulated, {int(n_inl)} new landmarks")
+                # OdometryPipeline.cpp:394-395.
+                self._log(f"{self._tock():.6g} seconds for triangulating points.")
+
+        R_new, t_new, R_s_new, t_s_new, accepted = motion_gate(
+            R_delta, t_delta, R_j, t_j, R_s_j, t_s_j, self._f32(self.scale)
+        )
+        accepted = bool(accepted)
+        if not accepted:
+            self._log("Using heuristic motion")
+        self.R.append(R_new.cpu().numpy().astype(np.float64))
+        self.t.append(t_new.cpu().numpy().astype(np.float64))
+        self.R_s.append(R_s_new.cpu().numpy().astype(np.float64))
+        self.t_s.append(t_s_new.cpu().numpy().astype(np.float64))
+        self.frame_stats[j].update(n3d=n3d, used_pnp=used_pnp, inliers=n_inl, accepted=accepted)
+        if cfg.verbose:
+            # OdometryPipeline.cpp:404-405.
+            self._log(f"{self._tock():.6g} seconds for pose estimation in frame #{j}")
+
+        if cfg.bundle_size and j and j % self._ba_cadence == 0:
+            self.bundle_adjust(j + 1)
+            self._ba_calls += 1
+
+    # ------------------------------------------------------------------
+    # bundle adjustment window (CeresBundleAdjustment.cpp:5-89)
+    # ------------------------------------------------------------------
+
+    def bundle_adjust(self, fn_frame: int) -> None:
+        """Flat-observation BA over the last ``bundle_size`` frames up to
+        ``fn_frame`` and the whole map (early windows padded with fixed,
+        unobserved slots); writes the poses and landmarks back."""
+        cfg = self.cfg
+        dev = self.device
+        fn = fn_frame + 1
+        n = min(cfg.bundle_size, fn)
+        N = cfg.feature_capacity
+        frame_ids = list(range(fn - n, fn))
+        pad = cfg.bundle_size - n
+
+        xy = torch.stack(
+            [torch.zeros((N, 2), dtype=torch.float32, device=dev)] * pad
+            + [self.tables[i].xy for i in frame_ids]
+        )
+        valid = torch.stack(
+            [torch.zeros((N,), dtype=torch.bool, device=dev)] * pad
+            + [self.tables[i].valid for i in frame_ids]
+        )
+        lm = torch.stack(
+            [torch.full((N,), -1, dtype=torch.int32, device=dev)] * pad
+            + [self.tables[i].landmark for i in frame_ids]
+        )
+        obs_uv, obs_pose, obs_lm, obs_mask = steps.assemble_ba_window(xy, valid, lm, self.map)
+        tr = torch.stack(
+            [torch.zeros((6,), dtype=torch.float32, device=dev)] * pad
+            + [geo.pose_to_ba_params(self._f32(self.R[i]), self._f32(self.t[i])) for i in frame_ids]
+        )
+        # Global frame 0 is held fixed (the reference skips it entirely,
+        # CeresBundleAdjustment.cpp:22-23; its observations stay as a window
+        # anchor). Padded slots are fixed too.
+        pose_free = torch.tensor([False] * pad + [i != 0 for i in frame_ids], device=dev)
+
+        prob = BAProblem(
+            tr=tr, lm=self.map.xyz, obs_uv=obs_uv, obs_pose=obs_pose, obs_lm=obs_lm,
+            obs_mask=obs_mask, pose_free=pose_free, K=self.K,
+        )
+        tr_out, lm_out, stats = ba_solve(prob, iters=cfg.max_iterations, obs_gate_px=cfg.ba_obs_gate_px)
+        if cfg.verbose:
+            # Ceres-style per-iteration solver progress (the reference streams
+            # Summary::FullReport under verbose, CeresBundleAdjustment.cpp:
+            # 56-57, :63-64).
+            c_prev = float(stats["cost0"])
+            for it, c in enumerate(stats["history"].tolist()):
+                self._log(f"  BA iter {it}: cost {c:.6e} (change {c_prev - c:.3e})")
+                c_prev = c
+            self._log(
+                f"BA window [{frame_ids[0]},{frame_ids[-1]}]: cost "
+                f"{float(stats['cost0']):.1f} -> {float(stats['cost']):.1f}"
+            )
+        self.map = self.map._replace(xyz=lm_out)
+        R_new, t_new = geo.ba_params_to_pose(tr_out)
+        R_new = R_new.cpu().numpy().astype(np.float64)
+        t_new = t_new.cpu().numpy().astype(np.float64)
+        for idx, i in enumerate(frame_ids):
+            if i == 0:
+                continue
+            self.R[i] = R_new[pad + idx]
+            self.t[i] = t_new[pad + idx]
 
     # ------------------------------------------------------------------
     # main loop (startPipeline, OdometryPipeline.cpp:247-296)
@@ -232,8 +466,18 @@ class OdometryPipeline:
     def run(self) -> dict:
         """Main loop: chunks of frames through ``fused.chunk_step`` with async
         host-side frame prefetch — the analogue of the reference's two-thread
-        pipeline — and one final readback."""
+        pipeline — and one final readback. A matcher other than ``lk`` and
+        ``knn`` runs through :meth:`run_modular`."""
         cfg = self.cfg
+        if cfg.matcher not in ("lk", "knn"):
+            # Say so loudly (not just under verbose): the modular loop
+            # dispatches once per stage.
+            print(
+                f"pmv_tpu_torch: matcher={cfg.matcher!r} is not fused — falling back "
+                "to the modular per-stage loop (slower than the fused matchers)",
+                flush=True,
+            )
+            return self.run_modular()
         self._check_ported()
         init_paths = self.file_names[: cfg.init_frames]
         init_imgs = [img for _, img in FramePrefetcher(init_paths)]
@@ -311,7 +555,7 @@ class OdometryPipeline:
                 f"{'pnp' if s['used_pnp'] else 'tri'}, inliers {s['inliers']}, "
                 f"accepted {s['accepted']}"
             )
-        n_overflow = int(state.ba_overflow)
+        n_overflow = self.ba_overflow = int(state.ba_overflow)
         if n_overflow:
             # Saturated windows silently drop observations — a biased BA.
             print(
@@ -329,6 +573,35 @@ class OdometryPipeline:
             )
             for i in range(k_last + 1)
         ]
+        return self._finish()
+
+    @torch.no_grad()
+    def run_modular(self) -> dict:
+        """Reference-shaped loop of per-stage calls — ``add_frame`` then
+        ``estimate_pose`` per frame, ``bundle_adjust`` at its cadence — with
+        the uncached tracker and the flat BA: behaviourally equivalent to
+        :meth:`run`, with a few host read-backs per frame."""
+        cfg = self.cfg
+        self._check_ported()
+        self._ba_calls = 0
+        self.frame_stats = []
+        init_paths = self.file_names[: cfg.init_frames]
+        init_imgs = [img for _, img in FramePrefetcher(init_paths)]
+        self.initialise(init_imgs)
+        self._prev_pyr = self._pyramid(init_imgs[self.init_offset])
+        self._seed_trajectory()
+
+        t_start = time.perf_counter()
+        start = self.init_offset + 1
+        stop = min(cfg.frames, len(self.file_names))
+        for _, img in FramePrefetcher(self.file_names[start:stop]):
+            k = self.add_frame(img)
+            self.estimate_pose(k - 1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.runtime = time.perf_counter() - t_start
+        for s in self.frame_stats:
+            s["inliers"] = int(s["inliers"])
         return self._finish()
 
     # ------------------------------------------------------------------

@@ -3,9 +3,11 @@ counterpart of ``pmv_tpu/solvers/essential.py``.
 
 Replacement for the reference's bootstrap triangulator
 (OpenCVFivePointTri.cpp:5-54): ``cv::findEssentialMat`` + ``cv::recoverPose``
-(cheirality + triangulation). The minimal solver is the five-point algorithm
-(``five_point.py``); this module holds the weighted 8-point refit, Sampson
-scoring, pose recovery and the Sampson Gauss-Newton polish.
+(cheirality + triangulation). The default minimal solver is the five-point
+algorithm (``five_point.py``); this module holds the eight-point RANSAC
+(``essential_solver=eight_point``: batched normalized 8-point hypotheses,
+Sampson scoring, MSAC selection, iterated refit), the weighted 8-point
+refit, pose recovery and the Sampson Gauss-Newton polish.
 
 Conventions (identical to OpenCV): points x1 in camera-1 frame map to camera
 2 as ``x2 = R x1 + t``; E satisfies ``x2_hat^T E x1_hat = 0`` with
@@ -20,6 +22,7 @@ import torch
 from pmv_tpu_torch.core.geometry import hat as geo_hat
 from pmv_tpu_torch.core.geometry import rodrigues as geo_rodrigues
 from pmv_tpu_torch.core.linalg import det3
+from pmv_tpu_torch.solvers.ransac import sample_minimal_sets
 
 Tensor = torch.Tensor
 
@@ -34,8 +37,9 @@ def normalize_points(p: Tensor, K: Tensor) -> Tensor:
 def _eight_point(x1: Tensor, x2: Tensor, w: Tensor) -> Tensor:
     """Weighted 8-point solve on unit-plane coords.
 
-    x1, x2: (N, 2); w: (N,) nonnegative weights (0 excludes a row). Returns
-    E (3, 3) with the (1, 1, 0) singular-value constraint enforced.
+    x1, x2: (..., N, 2); w: (..., N) nonnegative weights (0 excludes a row).
+    Returns E (..., 3, 3) with the (1, 1, 0) singular-value constraint
+    enforced.
     """
     ones = torch.ones_like(x1[..., 0])
     A = torch.stack(
@@ -53,14 +57,14 @@ def _eight_point(x1: Tensor, x2: Tensor, w: Tensor) -> Tensor:
         dim=-1,
     )  # (N, 9)
     A = A * w[..., None]
-    AtA = A.T @ A
+    AtA = A.transpose(-1, -2) @ A
     _, vecs = torch.linalg.eigh(AtA)  # ascending eigenvalues
-    E = vecs[:, 0].reshape(3, 3)
+    E = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
     # Enforce rank-2 essential structure with equal singular values.
     U, s, Vt = torch.linalg.svd(E)
-    s_mean = (s[0] + s[1]) * 0.5
+    s_mean = (s[..., 0] + s[..., 1]) * 0.5
     zero = torch.zeros_like(s_mean)
-    return (U * torch.stack([s_mean, s_mean, zero])) @ Vt
+    return (U * torch.stack([s_mean, s_mean, zero], dim=-1)[..., None, :]) @ Vt
 
 
 def sampson_error(E: Tensor, x1: Tensor, x2: Tensor) -> Tensor:
@@ -73,6 +77,41 @@ def sampson_error(E: Tensor, x1: Tensor, x2: Tensor) -> Tensor:
     num = torch.sum(x2h * Ex1, dim=-1) ** 2
     den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
     return num / torch.clamp(den, min=1e-18)
+
+
+def find_essential_ransac(
+    p1: Tensor,
+    p2: Tensor,
+    valid: Tensor,
+    K: Tensor,
+    gen: torch.Generator | None,
+    n_hypos: int = 256,
+    thresh_px: float = 1.0,
+    samples: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """RANSAC essential matrix from pixel correspondences with the 8-point
+    minimal solver.
+
+    p1, p2: (N, 2) pixels; valid: (N,) mask. Returns (E (3,3), inliers (N,)).
+    Replaces cv::findEssentialMat(RANSAC, 0.99, 1px) at
+    OpenCVFivePointTri.cpp:24 with a fixed batch of ``n_hypos`` hypotheses,
+    selected by MSAC and refit three times. ``samples`` (n_hypos, 8) index
+    tensor, when given, replaces the generator draw.
+    """
+    x1 = normalize_points(p1, K)
+    x2 = normalize_points(p2, K)
+    f_avg = (K[0, 0] + K[1, 1]) * 0.5
+    thresh2 = (thresh_px / f_avg) ** 2
+
+    idx = samples if samples is not None else sample_minimal_sets(gen, valid, n_hypos, 8)
+    idx = idx.long()
+    Es = _eight_point(x1[idx], x2[idx], torch.ones(idx.shape, dtype=x1.dtype, device=x1.device))
+    errs = sampson_error(Es, x1, x2)  # (H, N)
+    # MSAC model selection: minimize the truncated error sum.
+    msac = torch.sum(torch.where(valid[None, :], torch.minimum(errs, thresh2), 0.0), dim=1)
+    best = torch.argmin(msac)
+    best_mask = (errs[best] < thresh2) & valid
+    return refit_essential(Es[best], best_mask, x1, x2, valid, thresh2)
 
 
 def refit_essential(E: Tensor, mask: Tensor, x1: Tensor, x2: Tensor, valid: Tensor,

@@ -2,10 +2,11 @@
 
     python3 scripts/torch_main_path_profile.py [--frames 45] [--repeat 1] [--deterministic]
                                                [--runs-only] [--plain-tracker]
+                                               [--path main|knn_hd|knn_good|modular]
                                                [--out profile.json]
 
-Writes the bench corridor (370x1226, the settings of chip_smoke.py's main
-path), then runs ``pmv_tpu_torch``'s ``OdometryPipeline`` on it three times
+Writes chip_smoke.py's corridor (370x1226) and takes the settings of one of
+its paths from it (the main path unless ``--path`` says otherwise), then runs ``pmv_tpu_torch``'s ``OdometryPipeline`` on it three times
 in one process: a cold run (pays CUDA/cuSOLVER/kernel-build start-up), a warm
 run (the ms/frame to quote; ``--repeat N`` makes N of them, for the spread of
 ms/frame and of the trajectory error from run to run), a run with the stages
@@ -22,6 +23,14 @@ two runs in which every tracked level goes through ``lk_track_level_plain``
 on the card in place of the kernel (``plain_tracker_runs``): what the
 trajectory and its error are when only the order of the kernel's sums
 differs.
+``--path`` picks the configuration of one of chip_smoke.py's paths
+(default ``main``): ``knn_hd`` (FAST+kNN, 2048 slots, the preset of
+artifacts/stage/bench_knn_hd_r5.json), ``knn_good`` (kNN with the default
+extractor) or ``modular`` (``run_modular()`` at the main configuration);
+``stages_warm`` then also times the stages inside the step (candidate
+extraction, kNN association, tracker, RANSAC solvers, pose recovery, BA),
+each call synchronised, so that a stage's total includes the stages it
+calls.
 Prints one JSON object and, with ``--out``, also writes it to that file. Needs a CUDA device.
 """
 
@@ -40,14 +49,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from chip_smoke import HD_CFG, KNN_GOOD_CFG, MAIN_CFG, vo_config, write_corridor  # noqa: E402
 from pmv_tpu_torch.cli import rebased_ate  # noqa: E402
 from pmv_tpu_torch.config import VOConfig  # noqa: E402
-from pmv_tpu_torch.frontend import lk_kernels, lucas_kanade  # noqa: E402
-from pmv_tpu_torch.io import synthetic  # noqa: E402
-from pmv_tpu_torch.pipeline import fused  # noqa: E402
+from pmv_tpu_torch.frontend import corners, knn_matcher, lk_kernels, lucas_kanade  # noqa: E402
+from pmv_tpu_torch.pipeline import fused, steps  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
+from pmv_tpu_torch.solvers import essential, pnp  # noqa: E402
 
-SHAPE = (370, 1226)
 # Device entries of the trace that belong to the tracker: the hand-written
 # kernels of csrc/ and PyTorch's replication-pad kernel (edge padding of a
 # level before a capture). ``lk_template_kernel`` and ``lk_iterate_kernel``
@@ -59,18 +68,20 @@ TRACKER_KERNELS = ("capture_kernel", "lk_level_kernel", "lk_template_kernel",
 TRACK_RANGE = "tracker::track_cached"  # profiler range around lucas_kanade.track_cached
 
 
-def make_cfg(paths: dict, frames: int) -> VOConfig:
-    return VOConfig(
-        image_dir=paths["image_dir"], camera_calibration=paths["camera_calibration"],
-        poses=paths["poses"], camera=0, frames=frames, init_frames=5,
-        min_tracked_features=400, tracked_features_tol=150, bundle_size=5,
-        max_iterations=5, feature_capacity=512, map_capacity=8192, verbose=0, seed=0,
-    )
+# chip_smoke.py's paths: their VOConfig settings, and whether the path is
+# the modular loop
+PATHS = {
+    "main": (MAIN_CFG, False),
+    "knn_hd": (HD_CFG, False),
+    "knn_good": (KNN_GOOD_CFG, False),
+    "modular": (MAIN_CFG, True),
+}
+MODULAR = False  # set from --path
 
 
 def run_once(cfg: VOConfig) -> dict:
     pipe = OdometryPipeline(cfg, device="cuda")
-    res = pipe.run()
+    res = pipe.run_modular() if MODULAR else pipe.run()
     torch.cuda.synchronize()
     n = max(len(pipe.frame_stats), 1)
     return {
@@ -101,10 +112,46 @@ def plain_tracker_runs(cfg: VOConfig, n: int) -> list[dict]:
         lucas_kanade._track_level_cached = orig
 
 
+# Stages timed inside the step: (name, owner, attribute), called through
+# the owner's attribute by the loops
+INNER_STAGES = [
+    ("grid_extract", corners, "grid_extract"),
+    ("knn_match", knn_matcher, "knn_match"),
+    ("track_step_cached", steps, "track_step_cached"),
+    ("track_step", steps, "track_step"),
+    ("reseed_step", steps, "reseed_step"),
+    ("solve_pnp_ransac", pnp, "solve_pnp_ransac"),
+    ("find_essential_5pt_ransac", fused, "find_essential_5pt_ransac"),
+    ("find_essential_ransac", essential, "find_essential_ransac"),
+    ("recover_pose", essential, "recover_pose"),
+    ("add_frame", OdometryPipeline, "add_frame"),
+    ("estimate_pose", OdometryPipeline, "estimate_pose"),
+    ("bundle_adjust", OdometryPipeline, "bundle_adjust"),
+]
+
+
 def stage_times(cfg: VOConfig) -> dict:
-    """Synchronised wall time of frame_step by branch, and of ba_step."""
+    """Synchronised wall time of frame_step by branch, of ba_step, and of
+    the stages inside them (``INNER_STAGES``)."""
     acc: dict[str, list[float]] = {"frame_pnp": [], "frame_bootstrap": [], "ba_step": []}
+    acc.update({name: [] for name, _, _ in INNER_STAGES})
     orig_frame, orig_ba = fused.frame_step, fused.ba_step
+    if MODULAR:  # the modular loop runs find_essential_5pt_ransac from odometry's namespace
+        from pmv_tpu_torch.pipeline import odometry
+        stages = INNER_STAGES + [("find_essential_5pt_ransac", odometry, "find_essential_5pt_ransac")]
+    else:
+        stages = INNER_STAGES
+    originals = [(owner, attr, getattr(owner, attr)) for _, owner, attr in stages]
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
 
     def timed_frame(*a, **k):
         torch.cuda.synchronize()
@@ -115,19 +162,15 @@ def stage_times(cfg: VOConfig) -> dict:
         acc[key].append((time.perf_counter() - t0) * 1e3)
         return out
 
-    def timed_ba(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig_ba(*a, **k)
-        torch.cuda.synchronize()
-        acc["ba_step"].append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    fused.frame_step, fused.ba_step = timed_frame, timed_ba
+    fused.frame_step, fused.ba_step = timed_frame, timed("ba_step", orig_ba)
+    for (name, owner, attr), (_, _, fn) in zip(stages, originals):
+        setattr(owner, attr, timed(name, fn))
     try:
         run_once(cfg)
     finally:
         fused.frame_step, fused.ba_step = orig_frame, orig_ba
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
     return {
         k: {"calls": len(v), "mean_ms": sum(v) / len(v) if v else None,
             "total_ms": sum(v)}
@@ -203,8 +246,12 @@ def main() -> int:
     ap.add_argument("--runs-only", action="store_true", help="cold and warm runs only")
     ap.add_argument("--plain-tracker", action="store_true",
                     help="also two runs with the plain version in place of the level kernel")
+    ap.add_argument("--path", choices=sorted(PATHS), default="main",
+                    help="configuration of one of chip_smoke.py's paths")
     ap.add_argument("--out", default=None, help="also write the JSON object to this file")
     args = ap.parse_args()
+    global MODULAR
+    settings, MODULAR = PATHS[args.path]
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     if args.deterministic:
@@ -214,13 +261,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     with tempfile.TemporaryDirectory(prefix="pmv_profile_") as tmp:
-        seq = synthetic.make_sequence(
-            n_frames=args.frames, shape=SHAPE, K=synthetic.KITTI_K, density=150.0,
-            speed=1.0, yaw_rate=0.004, seed=0,
-        )
-        cfg = make_cfg(synthetic.write_kitti_layout(seq, tmp), args.frames)
+        cfg = vo_config(write_corridor(tmp, args.frames), tmp, args.frames, **settings)
         out = {"card": smi, "torch": torch.__version__, "frames": args.frames,
-               "deterministic": args.deterministic}
+               "path": args.path, "deterministic": args.deterministic}
         out["cold"] = run_once(cfg)
         out["warm_runs"] = [run_once(cfg) for _ in range(max(1, args.repeat))]
         out["warm"] = out["warm_runs"][0]

@@ -7,7 +7,9 @@
 #   sh scripts/torch_parent_vs_change.sh <dir> <out-dir> [extra profile arguments]
 #
 # Both trees are profiled by this tree's scripts/torch_main_path_profile.py
-# (copied into <dir>, so that both count the same things), two warm runs
+# (copied into <dir>, so that both count the same things; it reads each
+# tree's configurations from that tree's chip_smoke.py, which must define
+# MAIN_CFG, HD_CFG, KNN_GOOD_CFG, vo_config and write_corridor), two warm runs
 # each; then the kernels phase of each tree's own chip_smoke.py. Writes
 # profile_{parent,change}_{a,b}.json and smoke_{parent,change}.txt to
 # <out-dir>. Needs a CUDA device and nvcc.

@@ -240,5 +240,8 @@ class TestCorners:
         assert tt[0].shape == (capacity, 2)
 
     def test_unported_response_raises(self):
-        with pytest.raises(NotImplementedError):
-            corners.grid_extract(torch.zeros(32, 32), 4, response="fast")
+        """An unknown response raises ValueError, as in the JAX package."""
+        with pytest.raises(ValueError, match="unknown response"):
+            corners.grid_extract(torch.zeros(32, 32), 4, response="sobel")
+        with pytest.raises(ValueError, match="unknown response"):
+            j_corners.grid_extract(jnp.zeros((32, 32)), 4, response="sobel")

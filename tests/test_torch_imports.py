@@ -47,6 +47,7 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.config", "pmv_tpu_torch.cli", "pmv_tpu_torch.convert",
         "pmv_tpu_torch.core.geometry", "pmv_tpu_torch.frontend.lk_kernels",
         "pmv_tpu_torch.frontend.capture", "pmv_tpu_torch.frontend.min_eig",
+        "pmv_tpu_torch.frontend.fast", "pmv_tpu_torch.frontend.knn_matcher",
         "pmv_tpu_torch.solvers.five_point", "pmv_tpu_torch.ba.schur_lm",
         "pmv_tpu_torch.pipeline.fused", "pmv_tpu_torch.pipeline.odometry",
     ):
@@ -131,10 +132,6 @@ def test_unported_options_are_refused_not_ignored(tmp_path):
         poses=paths["poses"], frames=6, init_frames=2, feature_capacity=16,
         map_capacity=64, lk_window=9, lk_levels=1,
     )
-    for extra in (
-        {"matcher": "knn"}, {"cont_tri": 1}, {"extractor": "fast"},
-        {"essential_solver": "eight_point"}, {"video_path": "x.avi"},
-        {"checkpoint_path": "x.npz"},
-    ):
+    for extra in ({"cont_tri": 1}, {"video_path": "x.avi"}, {"checkpoint_path": "x.npz"}):
         with pytest.raises(NotImplementedError):
             OdometryPipeline(VOConfig(**base, **extra), device="cpu").run()
