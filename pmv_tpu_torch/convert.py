@@ -7,7 +7,10 @@ by ``pmv_tpu``'s field names (``table.xy``, ``map.alive``, ``R_hist``,
 JAX: whoever holds the JAX state does the ``np.asarray`` on that side.
 
 With ``matcher=knn`` the JAX package's ``blocks`` is ``((image,),)``, the
-previous level-0 image; it travels as ``blocks.0.image``.
+previous level-0 image; it travels as ``blocks.0.image``. The landmark
+snapshots ``map_hist`` travel with all their rows; a dict without them (a
+state of the format before snapshots) gives an empty history, as a run with
+``map_hist_rows=0`` has.
 
 LK blocks are accepted in either layout of the JAX package — feature-major
 ``(N, Rg, Rg)`` (``lucas_kanade.capture_blocks``) or feature-lanes
@@ -24,7 +27,8 @@ from pmv_tpu_torch.pipeline.fused import StepState
 
 _TABLE = ("xy", "valid", "landmark", "score")
 _MAP = ("xyz", "alive", "head")
-_PLAIN = (
+# The StepState fields that are one tensor each, under their own names
+STATE_FIELDS = (
     "R", "t", "R_s", "t_s", "scale", "R_hist", "t_hist",
     "tbl_xy_hist", "tbl_valid_hist", "tbl_lm_hist", "map_hist", "ba_overflow",
 )
@@ -72,7 +76,7 @@ def state_from_reference(d: dict[str, np.ndarray], device) -> StepState:
         )
     table = FeatureTable(*(_tensor(d, f"table.{f}", device) for f in _TABLE))
     map_state = MapState(*(_tensor(d, f"map.{f}", device) for f in _MAP))
-    rest = {k: _tensor(d, k, device) for k in _PLAIN if k in d}
+    rest = {k: _tensor(d, k, device) for k in STATE_FIELDS if k in d}
     if "map_hist" not in rest:
         rest["map_hist"] = torch.zeros((0, map_state.capacity, 3), device=device)
     if "ba_overflow" not in rest:
@@ -96,7 +100,7 @@ def state_to_numpy(state: StepState) -> dict[str, np.ndarray]:
         out[f"table.{f}"] = getattr(state.table, f).cpu().numpy()
     for f in _MAP:
         out[f"map.{f}"] = getattr(state.map, f).cpu().numpy()
-    for k in _PLAIN:
+    for k in STATE_FIELDS:
         v = getattr(state, k)
         if v is not None:
             out[k] = v.cpu().numpy()

@@ -165,6 +165,12 @@ def project_points(points: Tensor, R: Tensor, t: Tensor, K: Tensor) -> Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def camera_depth(points: Tensor, R: Tensor, t: Tensor) -> Tensor:
+    """The (z-flipped) camera-frame depth used for cheirality tests:
+    positive when the point is in front of the camera."""
+    return -transform_inv(points, R, t)[..., 2]
+
+
 def pose_to_ba_params(R: Tensor, t: Tensor) -> Tensor:
     """World pose (R, t) -> 6-vector BA block ``[angle_axis(R^T), -t]``."""
     aa = rodrigues_inv(R.transpose(-1, -2))
@@ -206,3 +212,33 @@ def huber_weight(r2: Tensor, delta: float = 1.0) -> Tensor:
     d2 = delta * delta
     safe = torch.clamp(r2, min=torch.finfo(r2.dtype).tiny)
     return torch.where(r2 <= d2, torch.ones_like(r2), delta / torch.sqrt(safe))
+
+
+def triangulate_midpoint(
+    R_rel: Tensor, t_rel: Tensor, x1: Tensor, x2: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Closed-form midpoint triangulation, batched over N rays.
+
+    Camera 1 is [I|0], camera 2 is [R_rel|t_rel] (x2_cam = R_rel X + t_rel),
+    both in STANDARD camera coordinates (z > 0 in front); ``x1``/``x2`` are
+    unit-plane coords (N, 2). Returns (X (N, 3) in the camera-1 frame,
+    sin2 (N,) = squared sine of the ray parallax angle — the caller's
+    low-parallax gate; at sin2 -> 0 the midpoint is meaningless). A 2x2
+    closed form, cheap enough to run on every PnP frame
+    (pipeline/steps.continuous_triangulate).
+    """
+    d1 = torch.cat([x1, torch.ones_like(x1[..., :1])], dim=-1)
+    d1 = d1 / torch.linalg.norm(d1, dim=-1, keepdim=True)
+    d2c = torch.cat([x2, torch.ones_like(x2[..., :1])], dim=-1)
+    d2 = d2c @ R_rel  # R_rel^T rows -> direction in the camera-1 frame
+    d2 = d2 / torch.linalg.norm(d2, dim=-1, keepdim=True)
+    o2 = -(t_rel[None, :] @ R_rel)[0]  # camera-2 centre in the camera-1 frame
+    B = torch.sum(d1 * d2, dim=-1)
+    sin2 = torch.clamp(1.0 - B * B, min=0.0)
+    r1 = torch.sum(d1 * o2, dim=-1)  # d1 . (o2 - o1), o1 = 0
+    r2 = torch.sum(d2 * o2, dim=-1)
+    denom = torch.where(sin2 > 1e-12, -sin2, torch.full_like(sin2, -1e-12))
+    a = (B * r2 - r1) / denom
+    b = (r2 - B * r1) / denom
+    X = (a[..., None] * d1 + o2 + b[..., None] * d2) * 0.5
+    return X, sin2

@@ -18,14 +18,16 @@ from pathlib import Path
 
 import numpy as np
 
+from pmv_tpu_torch.io import native
 from pmv_tpu_torch.io.png import load_grayscale
 
 
 class FramePrefetcher:
     """Iterate decoded grayscale frames with background lookahead.
 
-    Yields (index, image float32 (H, W)) in order; frames that fail to decode
-    are skipped. Decoding uses the pure-Python PNG codec.
+    Yields (index, image (H, W)) in order; frames that fail to decode are
+    skipped. The native C++ decoder (pmv_tpu_torch.io.native) is used when
+    its library loads; otherwise the pure-Python codec.
     """
 
     def __init__(self, paths: Sequence[str | Path], depth: int = 8, loader=None):
@@ -55,5 +57,16 @@ class FramePrefetcher:
             yield i, img
 
 
+def decoder() -> str:
+    """Which decoder ``FramePrefetcher`` uses by default: ``native`` or
+    ``python``."""
+    return "native" if native.available() else "python"
+
+
 def _default_loader(path):
+    if native.available():
+        try:
+            return native.load_grayscale(path)
+        except ValueError:
+            pass  # the Python codec has the last word on a file it cannot read
     return load_grayscale(path)

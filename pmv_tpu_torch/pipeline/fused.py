@@ -17,9 +17,10 @@ expresses as ``lax.cond``:
 That read-back is one device->host synchronisation per frame; removing it
 (masked compute or CUDA graphs) is later work.
 
-State is a ``NamedTuple`` of tensors. The trajectory and feature-table
-histories are updated IN PLACE: the state returned by :func:`frame_step`
-shares those buffers with the state it was given.
+State is a ``NamedTuple`` of tensors. The trajectory, feature-table and
+landmark-snapshot histories are updated IN PLACE: the state returned by
+:func:`frame_step` or :func:`chunk_step` shares those buffers with the state
+it was given.
 """
 
 from __future__ import annotations
@@ -80,7 +81,11 @@ class StepConfig(NamedTuple):
     ba_obs_gate_px: float = 0.0  # initial-residual observation gate (px)
     ba_cadence: int = 0  # frames between BA calls; 0 = reference cadence
     # (bundle_size//3*2, OdometryPipeline.cpp:407)
-    cont_tri: bool = False  # not ported
+    cont_tri: bool = False  # continuous triangulation on PnP frames:
+    # midpoint-triangulate unbound tracked slots from the accepted relative
+    # pose and insert them (steps.continuous_triangulate). The reference has
+    # no counterpart (its landmarks are born only at
+    # OpenCVFivePointTri.cpp:36-53), so it is off by default.
     cont_tri_reproj_px: float = 2.0
     cont_tri_min_depth: float = 1.0
     cont_tri_max_depth: float = 120.0
@@ -92,7 +97,13 @@ class StepConfig(NamedTuple):
     traj_cap: int = 1024  # device trajectory capacity (frames)
     lk_impl: str = "auto"  # kept for config compatibility: CUDA tensors go
     # through the hand-written kernels, CPU tensors through the plain versions
-    map_hist_rows: int = 0  # landmark snapshots for the video replay (not ported)
+    map_hist_rows: int = 0  # landmark-position snapshot rows (0 = off).
+    # The reference's drawMap reads each landmark's CURRENT position at draw
+    # time (OdometryPipeline.cpp:110-127); positions change at BA, so a
+    # per-BA-cadence snapshot of map.xyz ((rows, M, 3) on the device) lets
+    # the post-run replay draw frame k's dots where they were then. Row
+    # k // cadence is (re)written after every frame's step and BA, so
+    # insertions between BA calls are captured.
 
 
 class StepState(NamedTuple):
@@ -121,16 +132,8 @@ class StepState(NamedTuple):
     tbl_xy_hist: Tensor  # (T, N, 2)
     tbl_valid_hist: Tensor  # (T, N)
     tbl_lm_hist: Tensor  # (T, N)
-    map_hist: Tensor = None  # (rows, M, 3); rows is 0 in this port
+    map_hist: Tensor = None  # (map_hist_rows, M, 3) landmark snapshots
     ba_overflow: Tensor = None  # () BA calls that dropped an observation
-
-
-def check_ported(cfg: StepConfig) -> None:
-    """Raise for the configurations whose code is not ported yet."""
-    if cfg.cont_tri:
-        raise NotImplementedError(
-            "cont_tri=1: continuous triangulation is not ported yet"
-        )
 
 
 def _search(cfg: StepConfig):
@@ -139,7 +142,6 @@ def _search(cfg: StepConfig):
 
 def init_state(pyr, table: FeatureTable, map_state: MapState, cfg: StepConfig) -> StepState:
     """Fresh state at frame 0."""
-    check_ported(cfg)
     N = table.capacity
     dev = table.xy.device
     T = cfg.traj_cap
@@ -170,7 +172,9 @@ def init_state(pyr, table: FeatureTable, map_state: MapState, cfg: StepConfig) -
         tbl_xy_hist=tbl_xy_hist,
         tbl_valid_hist=tbl_valid_hist,
         tbl_lm_hist=tbl_lm_hist,
-        map_hist=torch.zeros((0, map_state.capacity, 3), dtype=torch.float32, device=dev),
+        map_hist=torch.zeros(
+            (cfg.map_hist_rows, map_state.capacity, 3), dtype=torch.float32, device=dev
+        ),
         ba_overflow=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
@@ -202,7 +206,6 @@ def frame_step(
         raise NotImplementedError(
             "steady=True (the branch-free steady-state step) is not ported yet"
         )
-    check_ported(cfg)
     dev = next_img.device
     N = state.table.capacity
     knn = cfg.matcher == "knn"
@@ -296,6 +299,20 @@ def frame_step(
         R_d, t_d, state.R, state.t, state.R_s, state.t_s, scale
     )
 
+    if cfg.cont_tri:
+        # Map maintenance AFTER the pose is known: triangulate unbound
+        # tracked slots against the accepted pose (a no-op when the gate
+        # rejected or the bootstrap just rebuilt the map). It back-binds
+        # into the source table, which row k of the history then takes.
+        src_table, next_table, new_map = steps.continuous_triangulate(
+            src_table, next_table, new_map,
+            state.R, state.t, R_new, t_new, K,
+            enable=accepted & is_pnp,
+            reproj_px=cfg.cont_tri_reproj_px,
+            min_depth=cfg.cont_tri_min_depth,
+            max_depth=cfg.cont_tri_max_depth,
+        )
+
     k_new = state.k + 1
     # Histories are updated in place (see the module docstring). Row k gets
     # the source table back (the bootstrap may have bound landmarks into it),
@@ -347,8 +364,10 @@ def chunk_step(
 ):
     """Process the C frames of one uploaded chunk: :func:`frame_step` on each
     (frames are shipped uint8 and converted on the device) and
-    :func:`ba_step` at its cadence. Returns (state, list of per-frame
-    stats)."""
+    :func:`ba_step` at its cadence, then, with ``map_hist_rows``, the
+    landmark positions into row ``k // cadence`` of ``map_hist`` (in place;
+    ``k`` is the host's frame index, so nothing is read back). Returns
+    (state, list of per-frame stats)."""
     cadence = ba_cadence(cfg)
     all_stats = []
     for i in range(imgs_u8.shape[0]):
@@ -358,6 +377,8 @@ def chunk_step(
         j = state.k - 1
         if cfg.bundle_size > 0 and j > 0 and j % cadence == 0:
             state = ba_step(state, K, cfg)
+        if cfg.map_hist_rows > 0:
+            state.map_hist[min(state.k // cadence, cfg.map_hist_rows - 1)] = state.map.xyz
         all_stats.append(stats)
     return state, all_stats
 

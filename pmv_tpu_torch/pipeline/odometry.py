@@ -25,7 +25,6 @@ scalars per frame to take its branches.
 from __future__ import annotations
 
 import math
-import time
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +43,8 @@ from pmv_tpu_torch.pipeline import fused, steps
 from pmv_tpu_torch.pipeline.heuristics import motion_gate
 from pmv_tpu_torch.solvers import essential, pnp
 from pmv_tpu_torch.solvers.five_point import find_essential_5pt_ransac, ransac_budget
+from pmv_tpu_torch.utils import checkpoint
+from pmv_tpu_torch.utils.profiling import Stopwatch
 
 
 class OdometryPipeline:
@@ -83,7 +84,12 @@ class OdometryPipeline:
             cfg.ba_cadence if cfg.ba_cadence > 0 else max(1, cfg.bundle_size // 3 * 2)
         )
         self._prev_pyr = None  # the modular loop's previous pyramid
-        self._watch: list[float] = []  # tick/tock stack of the verbose stage times
+        # tick/tock stack of the run time and the verbose stage times
+        self._watch = Stopwatch(self.device)
+        # Landmark-position snapshots of run() (StepState.map_hist), read
+        # back only when a video is asked for (viz/render.py replay).
+        self.map_hist: np.ndarray | None = None
+        self.map_hist_cadence = self._ba_cadence
         self.frame_stats: list[dict] = []  # per tracked frame, filled by both loops
 
     # ------------------------------------------------------------------
@@ -94,37 +100,9 @@ class OdometryPipeline:
         if self.cfg.verbose:
             print(*args, flush=True)
 
-    def _tick(self) -> None:
-        self._watch.append(time.perf_counter())
-
-    def _tock(self) -> float:
-        """Seconds since the matching :meth:`_tick`, the device drained first
-        (the stage times the reference prints under verbose)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter() - self._watch.pop()
-
     def _n_tiles(self, shape) -> int:
         H, W = shape
         return math.ceil(H / self.cfg.grid_rows) * math.ceil(W / self.cfg.grid_cols)
-
-    def _check_ported(self) -> None:
-        """Options of the JAX package that this port does not carry yet are
-        refused, never ignored."""
-        cfg = self.cfg
-        unported = {
-            "video_path": bool(cfg.video_path),
-            "fancy_video": bool(cfg.fancy_video),
-            "checkpoint_path": bool(cfg.checkpoint_path),
-            "resume": bool(cfg.resume),
-            "live_every": cfg.live_every > 0,
-        }
-        asked = [k for k, v in unported.items() if v]
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: video rendering, checkpoint/resume and the "
-                "live map are not ported yet (viz/, utils/checkpoint.py)"
-            )
 
     # ------------------------------------------------------------------
     # initialisation (OdometryPipeline.cpp:428-482)
@@ -194,7 +172,7 @@ class OdometryPipeline:
         pyr = self._pyramid(img)
         k = len(self.tables)
         if cfg.verbose:
-            self._tick()
+            self._watch.tick()
         if cfg.matcher == "knn":
             # Alternate matcher (kNNFeatureMatcher.cpp semantics): fresh
             # corners in the new frame + patch-SSD association. Like the
@@ -218,13 +196,13 @@ class OdometryPipeline:
         if cfg.verbose:
             # Per-stage timing like the reference's verbose printouts
             # (OdometryPipeline.cpp:334-340).
-            self._log(f"{self._tock():.6g} seconds for feature matching in frame #{k}")
+            self._log(f"{self._watch.tock():.6g} seconds for feature matching in frame #{k}")
         reseed = tracked < (cfg.reseed_tol if cfg.reseed_tol > 0 else cfg.tracked_features_tol)
         if reseed:
             n_tiles = self._n_tiles(img.shape)
             n_per_tile = max(1, math.ceil(cfg.min_tracked_features / n_tiles))
             if cfg.verbose:
-                self._tick()
+                self._watch.tick()
             self._log(f"Trying to find {cfg.min_tracked_features} new features in frame #{k}")
             table = steps.reseed_step(
                 table, pyr[0], n_per_tile,
@@ -232,7 +210,7 @@ class OdometryPipeline:
             )
             if cfg.verbose:
                 # OdometryPipeline.cpp:369-370.
-                self._log(f"Feature extraction took {self._tock():.6g} seconds")
+                self._log(f"Feature extraction took {self._watch.tock():.6g} seconds")
         self.tables.append(table)
         self._prev_pyr = pyr
         self.frame_stats.append({"tracked": tracked, "reseed": reseed})
@@ -249,7 +227,7 @@ class OdometryPipeline:
         """Estimate the pose of frame j+1 from the pair (j, j+1)."""
         cfg = self.cfg
         if cfg.verbose:
-            self._tick()
+            self._watch.tick()
         src = self.tables[j]
         nxt = self.tables[j + 1]
         R_j, t_j = self._f32(self.R[j]), self._f32(self.t[j])
@@ -271,7 +249,7 @@ class OdometryPipeline:
                 self._log(f"frame {j}: PnP with {n3d} 3D points, {int(n_inl)} inliers")
         else:
             if cfg.verbose:
-                self._tick()
+                self._watch.tick()
             corr = src.valid & nxt.valid
             if cfg.essential_solver == "five_point":
                 E, inl = find_essential_5pt_ransac(
@@ -299,7 +277,7 @@ class OdometryPipeline:
             if cfg.verbose:
                 self._log(f"frame {j}: triangulated, {int(n_inl)} new landmarks")
                 # OdometryPipeline.cpp:394-395.
-                self._log(f"{self._tock():.6g} seconds for triangulating points.")
+                self._log(f"{self._watch.tock():.6g} seconds for triangulating points.")
 
         R_new, t_new, R_s_new, t_s_new, accepted = motion_gate(
             R_delta, t_delta, R_j, t_j, R_s_j, t_s_j, self._f32(self.scale)
@@ -314,7 +292,7 @@ class OdometryPipeline:
         self.frame_stats[j].update(n3d=n3d, used_pnp=used_pnp, inliers=n_inl, accepted=accepted)
         if cfg.verbose:
             # OdometryPipeline.cpp:404-405.
-            self._log(f"{self._tock():.6g} seconds for pose estimation in frame #{j}")
+            self._log(f"{self._watch.tock():.6g} seconds for pose estimation in frame #{j}")
 
         if cfg.bundle_size and j and j % self._ba_cadence == 0:
             self.bundle_adjust(j + 1)
@@ -451,7 +429,9 @@ class OdometryPipeline:
             cont_tri_min_depth=cfg.cont_tri_min_depth,
             cont_tri_max_depth=cfg.cont_tri_max_depth,
             traj_cap=cfg.traj_cap,
-            map_hist_rows=0,
+            map_hist_rows=(
+                cfg.traj_cap // self._ba_cadence + 2 if cfg.map_hist else 0
+            ),
         )
 
     def _upload(self, frames: list[np.ndarray]) -> torch.Tensor:
@@ -466,8 +446,11 @@ class OdometryPipeline:
     def run(self) -> dict:
         """Main loop: chunks of frames through ``fused.chunk_step`` with async
         host-side frame prefetch — the analogue of the reference's two-thread
-        pipeline — and one final readback. A matcher other than ``lk`` and
-        ``knn`` runs through :meth:`run_modular`."""
+        pipeline — and one final readback. With ``checkpoint_path`` it
+        snapshots the state every ``checkpoint_every`` frames at a chunk
+        boundary and at the end; with ``resume`` it starts from the snapshot;
+        with ``live_every`` it writes ``map_live.png`` as it goes. A matcher
+        other than ``lk`` and ``knn`` runs through :meth:`run_modular`."""
         cfg = self.cfg
         if cfg.matcher not in ("lk", "knn"):
             # Say so loudly (not just under verbose): the modular loop
@@ -478,7 +461,6 @@ class OdometryPipeline:
                 flush=True,
             )
             return self.run_modular()
-        self._check_ported()
         init_paths = self.file_names[: cfg.init_frames]
         init_imgs = [img for _, img in FramePrefetcher(init_paths)]
         self.initialise(init_imgs)
@@ -486,19 +468,25 @@ class OdometryPipeline:
 
         img0 = init_imgs[self.init_offset]
         step_cfg = self._step_config(img0.shape)
-        fused.check_ported(step_cfg)
         start = self.init_offset + 1
         stop = min(cfg.frames, len(self.file_names))
-        img0_dev = torch.as_tensor(img0, dtype=torch.float32).to(self.device)
-        state = fused.init_state(
-            pyr=build_pyramid(img0_dev, cfg.lk_levels),
-            table=self.tables[0],
-            map_state=self.map,
-            cfg=step_cfg,
-        )
-        k_last = 0
+        ckpt = Path(cfg.checkpoint_path) if cfg.checkpoint_path else None
+        if cfg.resume and ckpt is not None and ckpt.exists():
+            # The snapshot holds the state and where the RANSAC generator
+            # stood: the run goes on exactly as the uninterrupted one.
+            state, _ = checkpoint.load_fused_state(ckpt, self.device, generator=self._gen)
+            self._log(f"Resumed fused state at frame {state.k} from {ckpt}")
+        else:
+            img0_dev = torch.as_tensor(img0, dtype=torch.float32).to(self.device)
+            state = fused.init_state(
+                pyr=build_pyramid(img0_dev, cfg.lk_levels),
+                table=self.tables[0],
+                map_state=self.map,
+                cfg=step_cfg,
+            )
+        k_last = state.k
 
-        t_start = time.perf_counter()
+        self._watch.tick()
         C = max(1, cfg.chunk_frames)
         buf_img: list[np.ndarray] = []
         buf_gt: list[float] = []
@@ -514,7 +502,47 @@ class OdometryPipeline:
             buf_gt.clear()
             return state
 
-        for _, img in FramePrefetcher(self.file_names[start:stop]):
+        last_saved = last_live = k_last
+
+        def maybe_checkpoint(state, force=False):
+            """Snapshot the state and the generator at a chunk boundary,
+            through a temporary file renamed into place."""
+            nonlocal last_saved
+            if ckpt is None:
+                return
+            due = cfg.checkpoint_every > 0 and k_last - last_saved >= cfg.checkpoint_every
+            if not (due or force):
+                return
+            tmp = Path(str(ckpt) + ".tmp.npz")
+            checkpoint.save_fused_state(state, tmp, generator=self._gen)
+            tmp.replace(ckpt)
+            last_saved = k_last
+
+        def maybe_live(state):
+            """During-run observability: the trajectory map every
+            ``live_every`` frames — the headless counterpart of the
+            reference's per-frame cv::imshow map (OdometryPipeline.cpp:
+            423-425). Reads back only the trajectory so far and the map."""
+            nonlocal last_live
+            if cfg.live_every <= 0 or k_last - last_live < cfg.live_every:
+                return
+            last_live = k_last
+            from pmv_tpu_torch.io.png import write_png
+            from pmv_tpu_torch.viz import render
+
+            sk = state.k
+            t_h = state.t_hist[: sk + 1].cpu().numpy()
+            R_h = state.R_hist[: sk + 1].cpu().numpy()
+            xyz = state.map.xyz.cpu().numpy()
+            alive = state.map.alive.cpu().numpy()
+            m = render.draw_map(
+                list(t_h), self.gt_t, self.init_offset, cfg.map_scale,
+                landmarks=xyz[alive], R_est=list(R_h), gt_R=self.gt_R,
+            )
+            out = Path(cfg.error_path or "map_live.png")
+            write_png(out.parent / "map_live.png", m)
+
+        for _, img in FramePrefetcher(self.file_names[start + k_last : stop]):
             k = k_last + 1
             g = k - 1 + self.init_offset
             if g + 1 >= len(self.gt_t):
@@ -524,8 +552,11 @@ class OdometryPipeline:
             k_last = k
             if len(buf_img) == C:
                 state = flush(state)
+                maybe_checkpoint(state)
+                maybe_live(state)
         if buf_img:
             state = flush(state)
+        maybe_checkpoint(state, force=True)
         # Exact BA-call count of the loop: chunk_step fires BA after frame k
         # at j = k_new - 1, i.e. j ranges over [1, k_last).
         cadence = fused.ba_cadence(step_cfg)
@@ -534,7 +565,7 @@ class OdometryPipeline:
         self.map = state.map
         R_hist = state.R_hist.cpu().numpy()
         t_hist = state.t_hist.cpu().numpy()
-        self.runtime = time.perf_counter() - t_start
+        self.runtime = self._watch.tock()
         self.R = [np.asarray(R_hist[i], np.float64) for i in range(k_last + 1)]
         self.t = [np.asarray(t_hist[i], np.float64) for i in range(k_last + 1)]
         self.R_s = [state.R_s.cpu().numpy().astype(np.float64)]
@@ -563,6 +594,12 @@ class OdometryPipeline:
                 "raise ba_lm_cap (observations were dropped; heading drift risk)",
                 flush=True,
             )
+        # The landmark-position history is large (about 100 MB at the
+        # default traj_cap and map_capacity) and only the video replay reads
+        # it: read it back only when one will be rendered.
+        if step_cfg.map_hist_rows > 0 and (cfg.video_path or cfg.fancy_video):
+            self.map_hist = state.map_hist.cpu().numpy()
+            self.map_hist_cadence = cadence
         zero_score = torch.zeros((cfg.feature_capacity,), dtype=torch.float32, device=self.device)
         self.tables = [
             FeatureTable(
@@ -582,7 +619,6 @@ class OdometryPipeline:
         the uncached tracker and the flat BA: behaviourally equivalent to
         :meth:`run`, with a few host read-backs per frame."""
         cfg = self.cfg
-        self._check_ported()
         self._ba_calls = 0
         self.frame_stats = []
         init_paths = self.file_names[: cfg.init_frames]
@@ -591,15 +627,13 @@ class OdometryPipeline:
         self._prev_pyr = self._pyramid(init_imgs[self.init_offset])
         self._seed_trajectory()
 
-        t_start = time.perf_counter()
+        self._watch.tick()
         start = self.init_offset + 1
         stop = min(cfg.frames, len(self.file_names))
         for _, img in FramePrefetcher(self.file_names[start:stop]):
             k = self.add_frame(img)
             self.estimate_pose(k - 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.runtime = time.perf_counter() - t_start
+        self.runtime = self._watch.tock()
         for s in self.frame_stats:
             s["inliers"] = int(s["inliers"])
         return self._finish()

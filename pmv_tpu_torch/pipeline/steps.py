@@ -13,6 +13,7 @@ from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.state import FeatureTable, MapState, has_neighbor, scatter_rows
 from pmv_tpu_torch.frontend import corners
 from pmv_tpu_torch.frontend import lucas_kanade as lk
+from pmv_tpu_torch.solvers.essential import normalize_points
 
 Tensor = torch.Tensor
 
@@ -193,6 +194,65 @@ def register_triangulated(
     return (
         src_table._replace(landmark=lm_src),
         next_table._replace(landmark=lm_next),
+        new_map,
+    )
+
+
+def continuous_triangulate(
+    src_table: FeatureTable,
+    next_table: FeatureTable,
+    map_state: MapState,
+    R1: Tensor,
+    t1: Tensor,
+    R2: Tensor,
+    t2: Tensor,
+    K: Tensor,
+    enable,
+    reproj_px: float = 2.0,
+    min_depth: float = 1.0,
+    max_depth: float = 120.0,
+    min_sin2: float = 1e-5,
+) -> tuple[FeatureTable, FeatureTable, MapState]:
+    """Map maintenance on PnP frames: midpoint-triangulate slots tracked in
+    both frames that have no live landmark, and insert the survivors.
+
+    The reference only creates landmarks in the bootstrap branch
+    (OpenCVFivePointTri.cpp:36-53), so its map decays between bootstraps;
+    triangulating fresh (reseeded) features from the already-estimated
+    relative pose keeps ``count3DPoints`` dense. One closed-form midpoint
+    solve over all N slots (geometry.triangulate_midpoint), no RANSAC:
+    cheirality in both views, the depth band, reprojection error in both
+    views and parallax gate it, and PnP's outlier erase
+    (kill_outlier_landmarks) reaps a survivor that still mis-tracks. Masked
+    tables and static shapes; nothing is read back to the host.
+
+    ``enable`` is a 0-d bool tensor (or a bool), typically
+    ``accepted & is_pnp``; everything is an exact no-op when it is False.
+    """
+    F = torch.diag(R1.new_tensor([1.0, 1.0, -1.0]))
+    # Relative pose in STANDARD camera coords (see register_triangulated's
+    # flip convention): x_std = F R^T (p_w - t).
+    R_rel = F @ R2.T @ R1 @ F
+    t_rel = (F @ (R2.T @ (t1 - t2))[..., None])[..., 0]
+    x1 = normalize_points(src_table.xy, K)
+    x2 = normalize_points(next_table.xy, K)
+    X1_std, sin2 = geo.triangulate_midpoint(R_rel, t_rel, x1, x2)
+    z1 = X1_std[..., 2]
+    z2 = (X1_std @ R_rel.T + t_rel)[..., 2]
+    X_world = geo.transform(X1_std @ F, R1, t1)
+    e1 = torch.linalg.norm(geo.project_points(X_world, R1, t1, K) - src_table.xy, dim=-1)
+    e2 = torch.linalg.norm(geo.project_points(X_world, R2, t2, K) - next_table.xy, dim=-1)
+    ok = (
+        (z1 > min_depth) & (z1 < max_depth) & (z2 > min_depth)
+        & (sin2 > min_sin2) & (e1 < reproj_px) & (e2 < reproj_px)
+    )
+    bound = next_table.landmark >= 0
+    alive = map_state.alive[torch.clamp(next_table.landmark, min=0).long()] & bound
+    cand = src_table.valid & next_table.valid & ~alive & ok & enable
+    new_map, slots = map_state.insert(X_world, cand)
+    return (
+        src_table._replace(landmark=torch.where(cand, slots, src_table.landmark)),
+        next_table._replace(landmark=torch.where(cand, slots, next_table.landmark)),
         new_map,
     )
 

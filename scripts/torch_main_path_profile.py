@@ -3,7 +3,8 @@
     python3 scripts/torch_main_path_profile.py [--frames 45] [--repeat 1] [--deterministic]
                                                [--runs-only] [--plain-tracker]
                                                [--path main|knn_hd|knn_good|modular]
-                                               [--out profile.json]
+                                               [--set KEY=VALUE ...] [--python-decoder]
+                                               [--decode] [--out profile.json]
 
 Writes chip_smoke.py's corridor (370x1226) and takes the settings of one of
 its paths from it (the main path unless ``--path`` says otherwise), then runs ``pmv_tpu_torch``'s ``OdometryPipeline`` on it three times
@@ -31,12 +32,18 @@ extractor) or ``modular`` (``run_modular()`` at the main configuration);
 extraction, kNN association, tracker, RANSAC solvers, pose recovery, BA),
 each call synchronised, so that a stage's total includes the stages it
 calls.
+``--set KEY=VALUE`` (repeatable) overrides a ``VOConfig`` key of the path
+(``--set map_hist=0``: no landmark snapshots); ``--python-decoder`` decodes
+the frames with the pure-Python codec in place of the native decoder;
+``--decode`` also times both decoders on the corridor's frames, on the host
+(``decode_ms_per_frame``). Every run reports its peak device memory.
 Prints one JSON object and, with ``--out``, also writes it to that file. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -53,6 +60,7 @@ from chip_smoke import HD_CFG, KNN_GOOD_CFG, MAIN_CFG, vo_config, write_corridor
 from pmv_tpu_torch.cli import rebased_ate  # noqa: E402
 from pmv_tpu_torch.config import VOConfig  # noqa: E402
 from pmv_tpu_torch.frontend import corners, knn_matcher, lk_kernels, lucas_kanade  # noqa: E402
+from pmv_tpu_torch.io import kitti, native, png, prefetch  # noqa: E402
 from pmv_tpu_torch.pipeline import fused, steps  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 from pmv_tpu_torch.solvers import essential, pnp  # noqa: E402
@@ -81,10 +89,12 @@ MODULAR = False  # set from --path
 
 def run_once(cfg: VOConfig) -> dict:
     pipe = OdometryPipeline(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
     res = pipe.run_modular() if MODULAR else pipe.run()
     torch.cuda.synchronize()
     n = max(len(pipe.frame_stats), 1)
     return {
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "tracked_frames": n, "runtime_s": res["runtime"],
         "ms_per_frame": res["runtime"] / n * 1e3, "ba_calls": res["ba_calls"],
         "pnp_frames": sum(s["used_pnp"] for s in pipe.frame_stats),
@@ -236,6 +246,27 @@ def profiled(cfg: VOConfig, top: int) -> dict:
     }
 
 
+def decode_times(image_dir: str) -> dict:
+    """Host ms per frame of each decoder over the corridor's frames."""
+    files = kitti.list_images(image_dir)
+    out = {}
+    for name, load in (("native", native.load_grayscale), ("python", png.load_grayscale)):
+        if name == "native" and not native.available():
+            continue
+        t0 = time.perf_counter()
+        for f in files:
+            load(f)
+        out[name] = (time.perf_counter() - t0) / len(files) * 1e3
+    return out
+
+
+def setting(text: str) -> tuple[str, object]:
+    """``KEY=VALUE`` of ``--set``, the value cast to the VOConfig field's type."""
+    key, value = text.split("=", 1)
+    typ = {f.name: f.type for f in dataclasses.fields(VOConfig)}[key]
+    return key, {"int": int, "float": float}.get(typ, str)(value)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=45)
@@ -248,10 +279,18 @@ def main() -> int:
                     help="also two runs with the plain version in place of the level kernel")
     ap.add_argument("--path", choices=sorted(PATHS), default="main",
                     help="configuration of one of chip_smoke.py's paths")
+    ap.add_argument("--set", type=setting, action="append", default=[], metavar="KEY=VALUE",
+                    help="override a VOConfig key of the path")
+    ap.add_argument("--python-decoder", action="store_true",
+                    help="decode frames with the pure-Python codec")
+    ap.add_argument("--decode", action="store_true", help="also time both decoders on the host")
     ap.add_argument("--out", default=None, help="also write the JSON object to this file")
     args = ap.parse_args()
     global MODULAR
     settings, MODULAR = PATHS[args.path]
+    settings = {**settings, **dict(args.set)}
+    if args.python_decoder:
+        prefetch._default_loader = png.load_grayscale
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     if args.deterministic:
@@ -263,7 +302,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="pmv_profile_") as tmp:
         cfg = vo_config(write_corridor(tmp, args.frames), tmp, args.frames, **settings)
         out = {"card": smi, "torch": torch.__version__, "frames": args.frames,
-               "path": args.path, "deterministic": args.deterministic}
+               "path": args.path, "deterministic": args.deterministic,
+               "set": dict(args.set), "decoder": "python" if args.python_decoder else prefetch.decoder()}
+        if args.decode:
+            out["decode_ms_per_frame"] = decode_times(cfg.image_dir)
         out["cold"] = run_once(cfg)
         out["warm_runs"] = [run_once(cfg) for _ in range(max(1, args.repeat))]
         out["warm"] = out["warm_runs"][0]

@@ -1,8 +1,9 @@
-"""The JAX package's trajectory error at the configuration of chip_smoke.py's
-``knn_hd`` path, run on the CPU: the yardstick that path's ATE bar on the
-card is set from.
+"""The JAX package's trajectory error at the configuration of one of
+chip_smoke.py's paths (``knn_hd``, ``cont_tri`` or ``main``), run on the
+CPU: the yardstick that path's ATE bar on the card is set from.
 
-    JAX_PLATFORMS=cpu python3 scripts/torch_reference_ate.py [--frames 45] [--seeds 0 1 2]
+    JAX_PLATFORMS=cpu python3 scripts/torch_reference_ate.py [--path knn_hd|cont_tri|main]
+        [--frames 45] [--seeds 0 1 2]
 
 Writes the synthetic 370x1226 corridor of chip_smoke.py (``KITTI_K``,
 density 150, speed 1.0, yaw 0.004, data seed 0), runs ``pmv_tpu``'s
@@ -43,6 +44,13 @@ KNN_HD = dict(
     tracked_features_tol=150, bundle_size=5, max_iterations=5,
     ba_lm_cap=2048, ba_cadence=2,
 )
+# chip_smoke.py's MAIN_CFG (bench.py's default loop), and it with continuous
+# triangulation on: its CONT_TRI_CFG
+MAIN = dict(
+    init_frames=5, min_tracked_features=400, tracked_features_tol=150,
+    bundle_size=5, max_iterations=5, feature_capacity=512, map_capacity=8192,
+)
+PATHS = {"knn_hd": KNN_HD, "cont_tri": dict(MAIN, cont_tri=1), "main": MAIN}
 
 
 def rebased_ate(pipe) -> tuple[float, float]:
@@ -58,11 +66,14 @@ def rebased_ate(pipe) -> tuple[float, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=sorted(PATHS), default="knn_hd")
     ap.add_argument("--frames", type=int, default=45)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args()
 
-    out = {"package": "pmv_tpu", "backend": jax.default_backend(), "settings": KNN_HD,
+    settings = PATHS[args.path]
+    out = {"package": "pmv_tpu", "backend": jax.default_backend(), "path": args.path,
+           "settings": settings,
            "image": SHAPE, "frames": args.frames, "runs": []}
     with tempfile.TemporaryDirectory(prefix="pmv_ref_") as tmp:
         seq = synthetic.make_sequence(
@@ -74,7 +85,7 @@ def main() -> int:
             cfg = VOConfig(
                 image_dir=paths["image_dir"], camera_calibration=paths["camera_calibration"],
                 poses=paths["poses"], camera=0, frames=args.frames, verbose=0, seed=seed,
-                **KNN_HD,
+                **settings,
             )
             t0 = time.perf_counter()
             pipe = OdometryPipeline(cfg)

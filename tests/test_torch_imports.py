@@ -50,6 +50,9 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.frontend.fast", "pmv_tpu_torch.frontend.knn_matcher",
         "pmv_tpu_torch.solvers.five_point", "pmv_tpu_torch.ba.schur_lm",
         "pmv_tpu_torch.pipeline.fused", "pmv_tpu_torch.pipeline.odometry",
+        "pmv_tpu_torch.utils.checkpoint", "pmv_tpu_torch.utils.profiling",
+        "pmv_tpu_torch.viz.render", "pmv_tpu_torch.viz.video",
+        "pmv_tpu_torch.viz.pointcloud", "pmv_tpu_torch.io.native",
     ):
         assert name in MODULES
 
@@ -121,8 +124,13 @@ def test_cli_run_without_gpu_fails(tmp_path):
 
 
 def test_unported_options_are_refused_not_ignored(tmp_path):
+    """Every option of ``run`` is ported but the branch-free steady step,
+    which is refused; the options that were refused before run now."""
+    import torch
+
     from pmv_tpu_torch.config import VOConfig
     from pmv_tpu_torch.io import synthetic
+    from pmv_tpu_torch.pipeline import fused
     from pmv_tpu_torch.pipeline.odometry import OdometryPipeline
 
     seq = synthetic.make_sequence(n_frames=6, shape=(48, 64), density=5)
@@ -130,8 +138,19 @@ def test_unported_options_are_refused_not_ignored(tmp_path):
     base = dict(
         image_dir=paths["image_dir"], camera_calibration=paths["camera_calibration"],
         poses=paths["poses"], frames=6, init_frames=2, feature_capacity=16,
-        map_capacity=64, lk_window=9, lk_levels=1,
+        map_capacity=64, lk_window=9, lk_levels=1, traj_cap=16,
+        error_path=str(tmp_path / "err.txt"),
     )
-    for extra in ({"cont_tri": 1}, {"video_path": "x.avi"}, {"checkpoint_path": "x.npz"}):
-        with pytest.raises(NotImplementedError):
-            OdometryPipeline(VOConfig(**base, **extra), device="cpu").run()
+    for extra in ({"cont_tri": 1}, {"video_path": str(tmp_path / "x.avi")},
+                  {"checkpoint_path": str(tmp_path / "x.npz")}, {"live_every": 2, "chunk_frames": 2}):
+        pipe = OdometryPipeline(VOConfig(**base, **extra), device="cpu")
+        assert pipe.run()["frames"] >= 2
+    assert (tmp_path / "x.npz").exists() and (tmp_path / "map_live.png").exists()
+    state = fused.init_state(
+        [torch.zeros((48, 64)), torch.zeros((24, 32))], pipe.tables[0],
+        pipe.map, fused.StepConfig(lk_levels=1, lk_window=9, traj_cap=16),
+    )
+    with pytest.raises(NotImplementedError, match="steady"):
+        fused.chunk_step(state, torch.zeros((1, 48, 64), dtype=torch.uint8), [1.0],
+                         None, pipe.K, fused.StepConfig(lk_levels=1, lk_window=9, traj_cap=16),
+                         steady=True)
