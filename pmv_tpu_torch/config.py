@@ -101,7 +101,7 @@ class VOConfig:
     # the accepted relative pose and insert them into the map
     # (pipeline/steps.continuous_triangulate). Keeps count3DPoints dense so
     # the five-point bootstrap branch becomes cold-start-only (it otherwise
-    # re-fires every 6-18 frames). Not ported yet: the port raises on 1. The
+    # re-fires every 6-18 frames). The
     # reference has no counterpart (landmarks are only born in the bootstrap
     # branch, OpenCVFivePointTri.cpp:36-53) — keep 0 for strict parity
     cont_tri_reproj_px: float = 2.0  # accept gate: reprojection error in

@@ -15,9 +15,17 @@ state of the format before snapshots) gives an empty history, as a run with
 LK blocks are accepted in either layout of the JAX package — feature-major
 ``(N, Rg, Rg)`` (``lucas_kanade.capture_blocks``) or feature-lanes
 ``(Rg, Rg, N)`` (``pallas_lk.capture_blocks``) — and stored ``(N, Rg, Rg)``.
+
+A batch of states (``parallel.multi_seq``) travels as the same dict with a
+leading batch axis on every array; :func:`batch_item` takes one state's dict
+out of it. What the global refinement reads of a finished run (``R``,
+``t``, ``K``, ``map``, ``tables``) travels as a dict too
+(:func:`run_from_reference`).
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -105,4 +113,54 @@ def state_to_numpy(state: StepState) -> dict[str, np.ndarray]:
         if v is not None:
             out[k] = v.cpu().numpy()
     out["k"] = np.asarray(state.k, np.int32)
+    return out
+
+
+def batch_item(d: dict[str, np.ndarray], b: int) -> dict[str, np.ndarray]:
+    """State ``b`` of a batched state's flat dict (every array's leading
+    axis is the batch)."""
+    return {k: np.asarray(v)[b] for k, v in d.items()}
+
+
+@dataclass
+class FinishedRun:
+    """What the global refinement reads of a finished run, as an
+    ``OdometryPipeline`` holds it after ``run()``: per-frame poses (float64
+    numpy lists, which the refinement replaces), intrinsics, the end-of-run
+    map and the per-frame tables."""
+
+    R: list
+    t: list
+    K: torch.Tensor
+    map: MapState
+    tables: list
+
+
+def run_from_reference(d: dict[str, np.ndarray], device) -> FinishedRun:
+    """A :class:`FinishedRun` on ``device`` from a flat dict: ``R`` (n, 3,
+    3), ``t`` (n, 3), ``K``, ``map.xyz|alive|head`` and ``tables.xy|valid|
+    landmark|score`` (n, N, ...)."""
+    n = np.asarray(d["t"]).shape[0]
+    tables = [
+        FeatureTable(*(torch.from_numpy(np.array(d[f"tables.{f}"][i])).to(
+            device=device, dtype=_DTYPES.get(f"table.{f}", torch.float32)) for f in _TABLE))
+        for i in range(n)
+    ]
+    return FinishedRun(
+        R=[np.asarray(r, np.float64) for r in np.asarray(d["R"])],
+        t=[np.asarray(x, np.float64) for x in np.asarray(d["t"])],
+        K=_tensor(d, "K", device),
+        map=MapState(*(_tensor(d, f"map.{f}", device) for f in _MAP)),
+        tables=tables,
+    )
+
+
+def run_to_numpy(run) -> dict[str, np.ndarray]:
+    """The inverse of :func:`run_from_reference`, from a finished
+    ``OdometryPipeline`` or a :class:`FinishedRun`."""
+    out = {"R": np.stack(run.R), "t": np.stack(run.t), "K": run.K.cpu().numpy()}
+    for f in _MAP:
+        out[f"map.{f}"] = getattr(run.map, f).cpu().numpy()
+    for f in _TABLE:
+        out[f"tables.{f}"] = np.stack([getattr(tb, f).cpu().numpy() for tb in run.tables])
     return out

@@ -134,6 +134,13 @@ class MapState(NamedTuple):
         alive = scatter_rows(self.alive, slots, False, mask & (slots >= 0))
         return self._replace(alive=alive)
 
+    def update_points(self, slots: Tensor, pts: Tensor, mask: Tensor) -> "MapState":
+        """Write back optimized landmark positions (BA write-back,
+        CeresBundleAdjustment.cpp:84-87): ``xyz[slots[i]] = pts[i]`` where
+        ``mask[i]`` and ``slots[i] >= 0``. Slots written must be distinct."""
+        xyz = scatter_rows(self.xyz, slots, pts, mask & (slots >= 0))
+        return self._replace(xyz=xyz)
+
 
 def has_neighbor(
     new_xy: Tensor, existing_xy: Tensor, existing_valid: Tensor, dist: int = 5

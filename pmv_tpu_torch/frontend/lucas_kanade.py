@@ -72,6 +72,27 @@ def _resolve_search(win: int, search: int | None) -> int:
     return max(4, win // 2) if search is None else search
 
 
+def bilinear_sample(img: Tensor, y: Tensor, x: Tensor) -> Tensor:
+    """Pointwise bilinear sampling of ``img`` (H, W) at rows ``y`` and
+    columns ``x`` (any equal shapes), clipped into the image (a utility:
+    the tracker samples blocks)."""
+    H, W = img.shape
+    x = torch.clamp(x, 0.0, W - 1.000001)
+    y = torch.clamp(y, 0.0, H - 1.000001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    dx = x - x0
+    dy = y - y0
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    return (
+        img[y0, x0] * (1 - dy) * (1 - dx)
+        + img[y0, x1] * (1 - dy) * dx
+        + img[y1, x0] * dy * (1 - dx)
+        + img[y1, x1] * dy * dx
+    )
+
+
 def _slice_blocks(img: Tensor, r0: Tensor, c0: Tensor, size: int) -> Tensor:
     """(N,) integer top-left corners -> (N, size, size) blocks of ``img``;
     starts are clamped so that the block stays in bounds (as

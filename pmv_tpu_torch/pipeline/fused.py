@@ -15,7 +15,9 @@ expresses as ``lax.cond``:
   triangulates a fresh map (estimatePose, OdometryPipeline.cpp:376-426).
 
 That read-back is one device->host synchronisation per frame; removing it
-(masked compute or CUDA graphs) is later work.
+(masked compute or CUDA graphs) is later work. The steady-state step
+(``steady=True``) takes PnP without reading ``n3d``: it still reads
+``tracked`` for the reseed.
 
 State is a ``NamedTuple`` of tensors. The trajectory, feature-table and
 landmark-snapshot histories are updated IN PLACE: the state returned by
@@ -201,11 +203,17 @@ def frame_step(
     ``essential_solver=eight_point``), when given, replaces that draw.
     ``stats``: ``tracked``, ``n3d`` (ints), ``used_pnp``, ``reseed``
     (bools), ``inliers``, ``accepted`` (0-d tensors, left on the device).
+
+    ``steady=True`` is the steady-state step: PnP is taken without reading
+    ``n3d`` back (only ``tracked`` is read, for the reseed), the
+    triangulation registration is skipped, and without ``cont_tri`` only
+    row k+1 of the table history is written (row k already holds the
+    source table). It is valid only while the map stays dense (``n3d >=
+    tracked_tol`` on every frame): ``n3d`` and ``used_pnp`` then come back
+    as device tensors, ``used_pnp`` being the condition the full step would
+    have branched on, for the caller to check after the chunk. On a dense
+    map it equals the full step bit for bit, RANSAC draws included.
     """
-    if steady:
-        raise NotImplementedError(
-            "steady=True (the branch-free steady-state step) is not ported yet"
-        )
     dev = next_img.device
     N = state.table.capacity
     knn = cfg.matcher == "knn"
@@ -233,10 +241,15 @@ def frame_step(
             state.blocks, next_pyr, state.table,
             win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
         )
-    # The one host read-back of the frame: both branch conditions at once.
-    tracked, n3d = torch.stack(
-        [tracked_table.num_valid(), state.table.count_3d(state.map.alive)]
-    ).tolist()
+    # The one host read-back of the frame: both branch conditions at once
+    # (the steady step reads only the reseed's).
+    if steady:
+        tracked = int(tracked_table.num_valid())
+        n3d = state.table.count_3d(state.map.alive)
+    else:
+        tracked, n3d = torch.stack(
+            [tracked_table.num_valid(), state.table.count_3d(state.map.alive)]
+        ).tolist()
 
     # --- reseed: extraction, merge AND block recapture (kNN: no capture) ---
     reseed_tol = cfg.reseed_tol if cfg.reseed_tol > 0 else cfg.tracked_tol
@@ -259,11 +272,11 @@ def frame_step(
                 next_pyr, next_table.xy, win=cfg.lk_window, search=_search(cfg)
             )
 
-    # --- pose: PnP vs essential-matrix bootstrap ---
+    # --- pose: PnP vs essential-matrix bootstrap (steady: PnP) ---
     is_pnp = n3d >= cfg.tracked_tol
     src = state.table
     gt_step = torch.as_tensor(gt_step, dtype=torch.float32, device=dev)
-    if is_pnp:
+    if steady or is_pnp:
         X_std, uv, mask, _ = steps.pnp_inputs(src, next_table, state.map, state.R, state.t)
         R_d, t_d, inliers = pnp.solve_pnp_ransac(
             X_std, uv, mask, K, gen, state.R_s, state.t_s,
@@ -316,12 +329,14 @@ def frame_step(
     k_new = state.k + 1
     # Histories are updated in place (see the module docstring). Row k gets
     # the source table back (the bootstrap may have bound landmarks into it),
-    # row k+1 the new table.
+    # row k+1 the new table. A steady step without cont_tri binds
+    # nothing into the source table, which row k already holds.
     state.R_hist[k_new] = R_new
     state.t_hist[k_new] = t_new
-    state.tbl_xy_hist[state.k] = src_table.xy
-    state.tbl_valid_hist[state.k] = src_table.valid
-    state.tbl_lm_hist[state.k] = src_table.landmark
+    if not steady or cfg.cont_tri:
+        state.tbl_xy_hist[state.k] = src_table.xy
+        state.tbl_valid_hist[state.k] = src_table.valid
+        state.tbl_lm_hist[state.k] = src_table.landmark
     state.tbl_xy_hist[k_new] = next_table.xy
     state.tbl_valid_hist[k_new] = next_table.valid
     state.tbl_lm_hist[k_new] = next_table.landmark
@@ -367,7 +382,9 @@ def chunk_step(
     :func:`ba_step` at its cadence, then, with ``map_hist_rows``, the
     landmark positions into row ``k // cadence`` of ``map_hist`` (in place;
     ``k`` is the host's frame index, so nothing is read back). Returns
-    (state, list of per-frame stats)."""
+    (state, list of per-frame stats). ``steady`` runs the steady-state
+    :func:`frame_step` on every frame; the caller checks every ``used_pnp``
+    of the chunk (device bools) afterwards."""
     cadence = ba_cadence(cfg)
     all_stats = []
     for i in range(imgs_u8.shape[0]):

@@ -18,6 +18,17 @@ from pmv_tpu_torch.solvers.essential import normalize_points
 Tensor = torch.Tensor
 
 
+def lk_module(impl: str, win: int | None = None, search: int | None = None):
+    """The LK tracker module for an implementation name of the JAX package
+    (``tap``, ``pallas``, ``auto``; any other name falls through as there).
+    The port has one route, ``frontend.lucas_kanade``: it launches the
+    hand-written kernels for CUDA tensors and takes their plain versions
+    for CPU tensors, so every name resolves to it (``StepConfig.lk_impl``
+    is kept for config compatibility); ``win`` and ``search`` are accepted
+    as the JAX package's are."""
+    return lk
+
+
 def track_step(
     prev_pyr,
     next_pyr,

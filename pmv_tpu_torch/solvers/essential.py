@@ -161,6 +161,33 @@ def refine_relative_pose(
     return torch.where(ok, R_out, R), torch.where(ok, t_out, t)
 
 
+def triangulate_points(R: Tensor, t: Tensor, x1: Tensor, x2: Tensor) -> Tensor:
+    """Linear (DLT) triangulation on unit-plane coordinates, batched over N:
+    the eigenvector of the least eigenvalue of each (4, 4) ``A^T A``. Camera
+    1 is [I|0], camera 2 is [R|t] (x2 = R x1 + t). Returns (N, 3) points in
+    the camera-1 frame (z <= 0 possible for outliers; callers apply
+    cheirality masks). The eigenvector's sign cancels in the division by its
+    fourth component. The per-frame path uses :func:`triangulate_points_fast`
+    (a batched small ``eigh`` is slow on an accelerator)."""
+    dt, dev = R.dtype, R.device
+    P1 = torch.cat([torch.eye(3, dtype=dt, device=dev), torch.zeros((3, 1), dtype=dt, device=dev)], dim=1)
+    P2 = torch.cat([R, t[:, None]], dim=1)
+
+    def rows(P, x):
+        r1 = x[..., 0:1] * P[2][None, :] - P[0][None, :]
+        r2 = x[..., 1:2] * P[2][None, :] - P[1][None, :]
+        return r1, r2
+
+    a1, a2 = rows(P1, x1)
+    a3, a4 = rows(P2, x2)
+    A = torch.stack([a1, a2, a3, a4], dim=-2)  # (N, 4, 4)
+    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    Xh = vecs[..., :, 0]
+    w = Xh[..., 3]
+    w_safe = torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
+    return Xh[..., :3] / w_safe[..., None]
+
+
 def triangulate_points_fast(R: Tensor, t: Tensor, x1: Tensor, x2: Tensor) -> Tensor:
     """Inhomogeneous DLT triangulation, batched over N: the 4 DLT rows with
     w fixed to 1, so the solve is a 3x3 normal-equation closed form

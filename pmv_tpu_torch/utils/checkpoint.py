@@ -9,8 +9,9 @@ own, ``rng_state``: the state of the ``torch.Generator`` that feeds the
 RANSAC draws. The port draws from one generator consumed in order, not from
 keys split per frame ahead of the run, so a resumed run repeats the
 uninterrupted one bit for bit only if the generator stands where it stood at
-the snapshot. A snapshot written by ``pmv_tpu`` carries no ``rng_state``; it
-loads, and the caller's generator is left as it is.
+the snapshot. A snapshot written by ``pmv_tpu`` carries no ``rng_state``,
+and one written on another kind of device carries a state that does not fit
+the caller's generator; both load, and the generator is left as it is.
 """
 
 from __future__ import annotations
@@ -32,8 +33,26 @@ def _np(x: torch.Tensor) -> np.ndarray:
 
 
 def _restore_generator(z, generator: torch.Generator | None) -> None:
-    if generator is not None and "rng_state" in z.files:
-        generator.set_state(torch.from_numpy(np.array(z["rng_state"], np.uint8)))
+    """Put ``generator`` where the snapshot's generator stood. A generator's
+    state is device-specific (16 bytes on a CUDA device: seed and offset; a
+    few kilobytes on the CPU), so a state that does not fit leaves the
+    generator as it is, as a snapshot without one (written by ``pmv_tpu``)
+    does; the run then loads, but its later RANSAC draws are not the
+    uninterrupted run's."""
+    if generator is None:
+        return
+    if "rng_state" not in z.files:
+        print("pmv_tpu_torch: the snapshot holds no generator state; "
+              "the RANSAC generator is left as it is", flush=True)
+        return
+    saved = torch.from_numpy(np.array(z["rng_state"], np.uint8))
+    have = generator.get_state()
+    if saved.numel() != have.numel():
+        print(f"pmv_tpu_torch: the snapshot's generator state ({saved.numel()} bytes) does "
+              f"not fit a {generator.device.type} generator ({have.numel()} bytes); "
+              "the RANSAC generator is left as it is", flush=True)
+        return
+    generator.set_state(saved)
 
 
 def save_fused_state(

@@ -1,13 +1,23 @@
 """The JAX package's trajectory error at the configuration of one of
-chip_smoke.py's paths (``knn_hd``, ``cont_tri`` or ``main``), run on the
-CPU: the yardstick that path's ATE bar on the card is set from.
+chip_smoke.py's paths (``knn_hd``, ``knn_good``, ``cont_tri``,
+``segmented`` or ``main``), run on the CPU: the yardstick that path's ATE bar
+on the card is set from.
 
-    JAX_PLATFORMS=cpu python3 scripts/torch_reference_ate.py [--path knn_hd|cont_tri|main]
-        [--frames 45] [--seeds 0 1 2]
+    JAX_PLATFORMS=cpu python3 scripts/torch_reference_ate.py
+        [--path knn_hd|knn_good|cont_tri|segmented|main] [--frames N] [--seeds 0 1 2]
+
+``--frames`` defaults to the path's frames in chip_smoke.py (20 for
+``knn_good``, 45 for the others). ``segmented`` runs ``pmv_tpu``'s
+``SegmentedPipeline`` with 4 segments at the main configuration; the other
+paths run ``OdometryPipeline.run()`` and also count the frames that took the
+PnP branch and the bootstrap. ``--refine`` also refines each finished run with
+``global_refine.global_bundle_adjust`` (one-device mesh, window 8, overlap 4,
+8 iterations) in the two forms of chip_smoke.py's ``refine`` phase: the run
+as it is, and the run with tests/test_parallel_flow.py's drift injected.
 
 Writes the synthetic 370x1226 corridor of chip_smoke.py (``KITTI_K``,
-density 150, speed 1.0, yaw 0.004, data seed 0), runs ``pmv_tpu``'s
-``OdometryPipeline.run()`` on it with each RANSAC seed, and prints one JSON
+density 150, speed 1.0, yaw 0.004, data seed 0), runs the JAX package's
+pipeline on it with each RANSAC seed, and prints one JSON
 line per seed (rebased ATE: RMSE of positions rebased at the init frame;
 the ground-truth path length over the tracked frames; its share of the
 path; frames, BA calls) and one JSON object with all of them. Imports
@@ -33,7 +43,9 @@ jax.config.update("jax_platforms", "cpu")
 
 from pmv_tpu.config import VOConfig  # noqa: E402
 from pmv_tpu.io import synthetic  # noqa: E402
+from pmv_tpu.pipeline import fused  # noqa: E402
 from pmv_tpu.pipeline.odometry import OdometryPipeline  # noqa: E402
+from pmv_tpu.pipeline.segmented import SegmentedPipeline  # noqa: E402
 
 SHAPE = (370, 1226)
 # BASELINE.json config #3 with the preset of artifacts/stage/bench_knn_hd_r5.json
@@ -50,7 +62,36 @@ MAIN = dict(
     init_frames=5, min_tracked_features=400, tracked_features_tol=150,
     bundle_size=5, max_iterations=5, feature_capacity=512, map_capacity=8192,
 )
-PATHS = {"knn_hd": KNN_HD, "cont_tri": dict(MAIN, cont_tri=1), "main": MAIN}
+PATHS = {"knn_hd": KNN_HD, "knn_good": dict(MAIN, matcher="knn"),
+         "cont_tri": dict(MAIN, cont_tri=1), "segmented": MAIN, "main": MAIN}
+# chip_smoke.py's PATH_FRAMES (knn_good) and its default --frames
+FRAMES = {"knn_good": 20}
+SEGMENTS = 4  # chip_smoke.py's segmented phase
+
+
+class FrameKinds:
+    """While active, every ``fused.chunk_step`` of ``OdometryPipeline.run``
+    also hands its per-frame ``used_pnp`` to ``pnp`` (read back after the
+    run)."""
+
+    def __enter__(self):
+        self.pnp = []
+        self.orig = fused.chunk_step
+
+        def recording(*args, **kw):
+            state, stats = self.orig(*args, **kw)
+            self.pnp.append(stats["used_pnp"])
+            return state, stats
+
+        fused.chunk_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        fused.chunk_step = self.orig
+
+    def counts(self) -> dict:
+        used = np.concatenate([np.asarray(u) for u in self.pnp]) if self.pnp else np.zeros(0, bool)
+        return {"pnp_frames": int(used.sum()), "bootstrap_frames": int((~used).sum())}
 
 
 def rebased_ate(pipe) -> tuple[float, float]:
@@ -64,14 +105,66 @@ def rebased_ate(pipe) -> tuple[float, float]:
     return float(np.sqrt(np.mean(np.sum(rel**2, axis=1)))), float(path)
 
 
+def mean_err(ts, ref) -> float:
+    return float(np.mean([np.linalg.norm(np.asarray(ts[i]) - ref[i]) for i in range(1, len(ts))]))
+
+
+def inject_drift(pipe, sigma_t=0.3, sigma_r=0.01, seed=7) -> None:
+    """tests/test_parallel_flow.py's drift injection."""
+    rng = np.random.default_rng(seed)
+    for i in range(2, len(pipe.t)):
+        pipe.t[i] = pipe.t[i] + rng.normal(0, sigma_t, 3)
+        w = rng.normal(0, sigma_r, 3)
+        th = np.linalg.norm(w)
+        k = w / (th + 1e-12)
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        pipe.R[i] = (np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx) @ pipe.R[i]
+
+
+def refine_forms(pipe) -> dict:
+    """Rebased ATE before and after the refinement, of the run as it is
+    (``clean``) and with the drift injected (``drifted``), and the drift's
+    own size (mean distance from the run's positions), with chip_smoke.py's
+    bars: clean after < 1.1 before + 0.02 m; drifted: ATE lower and the
+    injected noise at least halved. ``*_gt_mean_m``: tests/test_parallel_
+    flow.py's metric, the mean distance to ground truth without rebasing."""
+    from pmv_tpu.parallel import global_refine, mesh
+
+    one = mesh.make_mesh(dp=1, lm=1, devices=jax.devices()[:1])
+    gt = pipe.gt_t.copy()
+    gt[:, 2] *= -1
+    gt_ref = [gt[i + pipe.init_offset] for i in range(len(pipe.t))]
+    R0, t0 = list(pipe.R), list(pipe.t)
+    out = {}
+    for form in ("clean", "drifted"):
+        pipe.R, pipe.t = list(R0), list(t0)
+        if form == "drifted":
+            inject_drift(pipe)
+        before = (rebased_ate(pipe)[0], mean_err(pipe.t, gt_ref), mean_err(pipe.t, t0))
+        global_refine.global_bundle_adjust(pipe, one, window=8, overlap=4, iters=8)
+        after = (rebased_ate(pipe)[0], mean_err(pipe.t, gt_ref), mean_err(pipe.t, t0))
+        out[f"{form}_ate_m"] = [before[0], after[0]]
+        out[f"{form}_gt_mean_m"] = [before[1], after[1]]
+        if form == "drifted":
+            out["drifted_noise_m"] = [before[2], after[2]]
+    pipe.R, pipe.t = R0, t0
+    a, n = out["drifted_ate_m"], out["drifted_noise_m"]
+    out["clean_kept"] = out["clean_ate_m"][1] < 1.1 * out["clean_ate_m"][0] + 0.02
+    out["drifted_pulled_back"] = a[1] < a[0] and n[1] < n[0] / 2
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=sorted(PATHS), default="knn_hd")
-    ap.add_argument("--frames", type=int, default=45)
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
+    ap.add_argument("--refine", action="store_true", help="also refine each run (not segmented)")
     args = ap.parse_args()
 
     settings = PATHS[args.path]
+    if args.frames is None:
+        args.frames = FRAMES.get(args.path, 45)
     out = {"package": "pmv_tpu", "backend": jax.default_backend(), "path": args.path,
            "settings": settings,
            "image": SHAPE, "frames": args.frames, "runs": []}
@@ -88,15 +181,24 @@ def main() -> int:
                 **settings,
             )
             t0 = time.perf_counter()
-            pipe = OdometryPipeline(cfg)
-            res = pipe.run()
+            kinds = {}
+            if args.path == "segmented":
+                pipe = SegmentedPipeline(cfg, segments=SEGMENTS)
+                res = pipe.run()
+            else:
+                pipe = OdometryPipeline(cfg)
+                with FrameKinds() as rec:
+                    res = pipe.run()
+                kinds = rec.counts()
             ate, path = rebased_ate(pipe)
             out["runs"].append({
                 "seed": seed, "ate_rebased_m": ate, "path_m": path, "ate_share_of_path": ate / path,
-                "frames": res["frames"], "ba_calls": res["ba_calls"],
+                "frames": res["frames"], "ba_calls": res["ba_calls"], **kinds,
                 "poses_finite": bool(np.isfinite(np.stack(pipe.t)).all()),
                 "host_seconds": time.perf_counter() - t0,
             })
+            if args.refine and args.path != "segmented":
+                out["runs"][-1]["refine"] = refine_forms(pipe)
             print(json.dumps(out["runs"][-1]), flush=True)
     print(json.dumps(out), flush=True)
     return 0

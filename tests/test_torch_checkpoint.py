@@ -238,3 +238,54 @@ class TestResume:
         assert np.array_equal(np.stack(a.t), np.stack(b.t))
         assert ck.exists()
 
+
+
+def _with_card_generator_state(src, dst):
+    """A copy of the snapshot ``src`` whose ``rng_state`` is 16 bytes, the
+    size of a CUDA generator's state (seed and offset)."""
+    z = dict(np.load(src))
+    z["rng_state"] = np.arange(16, dtype=np.uint8)
+    np.savez_compressed(dst, **z)
+
+
+class TestCardSnapshotOnTheCpu:
+    def test_fused_snapshot_resumes(self, paths, tmp_path, capsys):
+        """A run's snapshot with a card's 16-byte generator state resumes on
+        the CPU: the state loads, the generator is left where the caller's
+        seed put it (and the message says so), and the run goes on to the
+        end with finite poses and the frames the uninterrupted run tracks."""
+        ck, card = tmp_path / "mid.npz", tmp_path / "card.npz"
+        make_pipe(paths, frames=8, chunk_frames=2, checkpoint_path=str(ck)).run()
+        _with_card_generator_state(ck, card)
+        gen = torch.Generator().manual_seed(3)
+        before = gen.get_state()
+        state, _ = checkpoint.load_fused_state(card, "cpu", generator=gen)
+        assert torch.equal(gen.get_state(), before)
+        assert "does not fit" in capsys.readouterr().out
+        assert_same_state(state, checkpoint.load_fused_state(ck, "cpu")[0])
+
+        full = make_pipe(paths, frames=FRAMES, chunk_frames=2)
+        full.run()
+        resumed = make_pipe(paths, frames=FRAMES, chunk_frames=2, checkpoint_path=str(card),
+                            resume=1)
+        resumed.run()
+        assert len(resumed.t) == len(full.t)
+        assert len(resumed.frame_stats) == len(full.t) - 1 - state.k
+        assert np.isfinite(np.stack(resumed.t)).all() and np.isfinite(np.stack(resumed.R)).all()
+        assert np.array_equal(np.stack(resumed.t)[: state.k + 1], np.stack(full.t)[: state.k + 1])
+
+    def test_modular_snapshot_loads(self, paths, tmp_path):
+        """``checkpoint.load`` of a modular snapshot with a 16-byte generator
+        state: everything else comes back, the generator stays as it was."""
+        pipe = make_pipe(paths, frames=6)
+        pipe.run_modular()
+        ck, card = tmp_path / "state.npz", tmp_path / "card.npz"
+        checkpoint.save(pipe, ck)
+        _with_card_generator_state(ck, card)
+        pipe2 = make_pipe(paths, frames=6)
+        before = pipe2._gen.get_state()
+        checkpoint.load(pipe2, card)
+        assert torch.equal(pipe2._gen.get_state(), before)
+        assert np.array_equal(np.stack(pipe2.t), np.stack(pipe.t))
+        assert torch.equal(pipe2.map.xyz, pipe.map.xyz)
+        assert len(pipe2.tables) == len(pipe.tables)

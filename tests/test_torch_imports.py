@@ -53,6 +53,9 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.utils.checkpoint", "pmv_tpu_torch.utils.profiling",
         "pmv_tpu_torch.viz.render", "pmv_tpu_torch.viz.video",
         "pmv_tpu_torch.viz.pointcloud", "pmv_tpu_torch.io.native",
+        "pmv_tpu_torch.parallel", "pmv_tpu_torch.parallel.pose_graph",
+        "pmv_tpu_torch.parallel.dist_ba", "pmv_tpu_torch.parallel.global_refine",
+        "pmv_tpu_torch.parallel.multi_seq", "pmv_tpu_torch.pipeline.segmented",
     ):
         assert name in MODULES
 
@@ -124,8 +127,9 @@ def test_cli_run_without_gpu_fails(tmp_path):
 
 
 def test_unported_options_are_refused_not_ignored(tmp_path):
-    """Every option of ``run`` is ported but the branch-free steady step,
-    which is refused; the options that were refused before run now."""
+    """Every option of ``run`` is ported, and so is the steady-state step
+    (refused before): it runs; what is not ported, a device mesh, is
+    refused. The options that were refused before run now."""
     import torch
 
     from pmv_tpu_torch.config import VOConfig
@@ -150,7 +154,13 @@ def test_unported_options_are_refused_not_ignored(tmp_path):
         [torch.zeros((48, 64)), torch.zeros((24, 32))], pipe.tables[0],
         pipe.map, fused.StepConfig(lk_levels=1, lk_window=9, traj_cap=16),
     )
-    with pytest.raises(NotImplementedError, match="steady"):
-        fused.chunk_step(state, torch.zeros((1, 48, 64), dtype=torch.uint8), [1.0],
-                         None, pipe.K, fused.StepConfig(lk_levels=1, lk_window=9, traj_cap=16),
-                         steady=True)
+    state, stats = fused.chunk_step(
+        state, torch.zeros((1, 48, 64), dtype=torch.uint8), [1.0], None, pipe.K,
+        fused.StepConfig(lk_levels=1, lk_window=9, traj_cap=16), steady=True)
+    assert state.k == 1 and not bool(stats[0]["used_pnp"])  # an empty map: no PnP frame
+    from pmv_tpu_torch.parallel import dist_ba, multi_seq
+
+    for refused in (lambda: dist_ba.make_distributed_ba(mesh=object()),
+                    lambda: multi_seq.make_batched_chunk_step(object(), fused.StepConfig())):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            refused()

@@ -314,14 +314,19 @@ class TestFrameStep:
             np.testing.assert_allclose(blk.numpy()[same], np.asarray(rblk)[same], rtol=1e-5, atol=1e-3)
 
     def test_unported_modes_raise(self, jax_run):
-        """steady=True (the branch-free step) is the one mode left unported;
-        cont_tri runs (held against the JAX package in
-        tests/test_torch_cont_tri.py)."""
+        """No mode of the step is left unported: steady=True runs (held
+        against the full step and the JAX package in
+        tests/test_torch_steady.py) and reports the branch the full step
+        would take as a device bool; cont_tri runs (held against the JAX
+        package in tests/test_torch_cont_tri.py)."""
         rec = jax_run["steps"][1]
         state = convert.state_from_reference(flatten(rec["before"]), "cpu")
         K = T(jax_run["K"])
-        with pytest.raises(NotImplementedError):
-            fused.frame_step(state, T(rec["img"]), 1.0, None, K, fused.StepConfig(**CFG), steady=True)
+        new, _, stats = fused.frame_step(
+            convert.state_from_reference(flatten(rec["before"]), "cpu"), T(rec["img"]), 1.0,
+            torch.Generator().manual_seed(0), K, fused.StepConfig(**CFG), steady=True)
+        assert new.k == state.k + 1 and torch.is_tensor(stats["used_pnp"])
+        assert bool(stats["used_pnp"]) == rec["used_pnp"]
         new, _, _ = fused.frame_step(
             state, T(rec["img"]), 1.0, torch.Generator().manual_seed(0), K,
             fused.StepConfig(**{**CFG, "cont_tri": True}))
