@@ -61,7 +61,16 @@ Phases, each printing one JSON line as it ends:
                back, no kernel launched, and the same refinement of CPU
                copies of the inputs equal to the card's within 1e-3 (it
                runs right after the main path, which it reads);
-13. the ``kernels`` summary line (launches of the main path, and per path),
+13. mesh    — the mesh forms (``parallel.mesh``): one NCCL rank on a (1, 1)
+               mesh, bit for bit against one device; then 4 gloo ranks
+               sharing the card on a (2, 2) mesh: main's run (its map slots
+               spread over the two landmark shards) refined clean and
+               drifted, the ranks equal bit for bit and within
+               ``MESH_REFINE_BAR`` of one device; the sharded solver's
+               all-reduces per LM iteration at two landmark counts; the
+               segments' states through the dp form of the batched step,
+               row for row equal to one process, with no collective;
+14. the ``kernels`` summary line (launches of the main path, and per path),
     the card line, and the final ``ok`` line.
 
 Every path's launch counts are set to 0 just before it runs and read just
@@ -97,7 +106,8 @@ from pmv_tpu_torch.frontend import capture, corners, image, lk_kernels, min_eig 
 from pmv_tpu_torch.frontend import lucas_kanade as lk  # noqa: E402
 from pmv_tpu_torch.io import prefetch, synthetic  # noqa: E402
 from pmv_tpu_torch.io.prefetch import FramePrefetcher  # noqa: E402
-from pmv_tpu_torch.parallel import global_refine, multi_seq  # noqa: E402
+from pmv_tpu_torch.parallel import global_refine, multi_seq, probe  # noqa: E402
+from pmv_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from pmv_tpu_torch.pipeline import fused  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 from pmv_tpu_torch.pipeline.segmented import SegmentedPipeline  # noqa: E402
@@ -1282,6 +1292,285 @@ def phase_refine(pipe) -> dict:
     return line
 
 
+# --------------------------------------------------------------------------
+# phase 13: the mesh
+# --------------------------------------------------------------------------
+
+# Landmarks a shard of the communication count's two BA windows
+# (probe.weak_ba_args: 5 poses, every landmark seen by every pose)
+COMM_LS = (512, 2048)
+# Seconds a launch of ranks may take, start-up of every rank included
+MESH_TIMEOUT = 300
+# The lm size of the 4-rank mesh, (2, MESH_LM)
+MESH_LM = 2
+# How far the refinement on the (2, 2) mesh may land from one device's (max
+# abs of R and t). Only the order of the sums differs, and the f32 LM loop
+# amplifies it through its accept decisions. On this card, on MainRun's
+# runs, the sound mesh landed 5.35e-5 (clean) and 1.022e-3 (drifted) from
+# one device; with a sharding fault planted in the ranks it landed 9.37e-3
+# to 9.21e-2 (the cost or the blocks left unreduced, a shard's blocks lost;
+# scripts/torch_mesh_gap.py --card). On the CPU, on tests/test_torch_mesh.py's
+# scene, the port's sound gap was up to 1.62e-3 (the same script, seeds 5-8).
+MESH_REFINE_BAR = 5e-3
+
+
+def spread_landmarks(run: dict, n: int) -> dict:
+    """``run`` (``convert.run_to_numpy``'s) with its map slots renumbered so
+    that consecutive slots fall in turn into each of ``n`` equal landmark
+    shards (slot s -> (s % n) * L/n + s // n). The problem is the same; but
+    the refinement cuts the map into contiguous slot blocks, as the JAX
+    package does, and main's run fills fewer than L/n of its L slots, so
+    without this every lm shard but the first would hold no observation."""
+    L = run["map.xyz"].shape[0]
+    slot = np.arange(L)
+    new = (slot % n) * (L // n) + slot // n
+    out = dict(run)
+    for f in ("xyz", "alive"):
+        a = np.empty_like(run[f"map.{f}"])
+        a[new] = run[f"map.{f}"]
+        out[f"map.{f}"] = a
+    lm = run["tables.landmark"]
+    out["tables.landmark"] = np.where(lm >= 0, new[np.maximum(lm, 0)], lm).astype(lm.dtype)
+    return out
+
+
+def table_entries_by_shard(run: dict, n: int) -> list[int]:
+    """The valid table entries bound to a landmark, over every frame, by the
+    landmark shard of ``n`` that holds their slot."""
+    lm, L = run["tables.landmark"], run["map.xyz"].shape[0]
+    ok = run["tables.valid"] & (lm >= 0)
+    return np.bincount(lm[ok] // (L // n), minlength=n).tolist()
+
+
+class MainRun:
+    """What the mesh phase needs of the main path's finished run, without
+    its device state: the run as numpy (``convert.run_to_numpy``), clean and
+    with ``inject_drift``'s drift, its map slots spread over ``MESH_LM``
+    shards (``spread_landmarks``); what ``cli.rebased_ate`` reads; and the
+    one-device refinement of both on the card (``card``: R and t by form)."""
+
+    def __init__(self, pipe):
+        clean = convert.run_to_numpy(pipe)
+        pipe.R, pipe.t = list(clean["R"]), list(clean["t"])
+        inject_drift(pipe)
+        drifted = dict(clean, R=np.stack(pipe.R), t=np.stack(pipe.t))
+        pipe.R, pipe.t = list(clean["R"]), list(clean["t"])
+        self.runs = {form: spread_landmarks(run, MESH_LM)
+                     for form, run in (("clean", clean), ("drifted", drifted))}
+        self.gt_t, self.init_offset = pipe.gt_t, pipe.init_offset
+        self.t = list(clean["t"])
+        self.card, self.card_seconds = {}, {}
+        for form, run in self.runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            R, t = global_refine.global_bundle_adjust(convert.run_from_reference(run, DEV), None,
+                                                      device=DEV, **REFINE)
+            torch.cuda.synchronize()
+            self.card_seconds[form] = time.perf_counter() - t0
+            self.card[form] = (np.stack(R), np.stack(t))
+
+    def ate(self, t) -> float:
+        self.t = list(t)
+        return cli.rebased_ate(self)
+
+
+def step_rows(m, rows: range, tmp: str, step_cfg, chunk: int) -> dict:
+    """Rows ``rows`` of the segments' states (saved by ``phase_mesh``)
+    through the batched step of ``m`` (``None``: one device, the card)
+    for the segments' frames in chunks of ``chunk``, launches counted by
+    state and collectives recorded. Returns each row's state as numpy, its
+    generator's state, its launches, the collectives and the seconds."""
+    dev = DEV if m is None else m.device
+    with np.load(Path(tmp) / "mesh_step.npz") as z:
+        imgs, gts, K = z["imgs"][rows.start: rows.stop], z["gts"][rows.start: rows.stop], z["K"]
+    gens = [torch.Generator(device=dev) for _ in rows]
+    state = multi_seq.batch_states([
+        checkpoint.load_fused_state(Path(tmp) / f"mesh_state{b}.npz", dev, g)[0]
+        for b, g in zip(rows, gens)])
+    step = multi_seq.make_batched_chunk_step(m, step_cfg, device=dev if m is None else None)
+    L = imgs.shape[1]
+    torch.cuda.synchronize()
+    with PerSegment(len(rows)) as per, probe.count_collectives() as calls:
+        reset_counts()
+        t0 = time.perf_counter()
+        for c0 in range(0, L, chunk):
+            state, _ = step(state, torch.from_numpy(imgs[:, c0: c0 + chunk]).to(dev),
+                            gts[:, c0: c0 + chunk].tolist(), gens, torch.from_numpy(K))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    return {"rows": list(rows), "launches": launches, "launches_by_state": per.launches,
+            "collectives": calls, "seconds": seconds,
+            "states": [convert.state_to_numpy(multi_seq.state_at(state, i)) for i in range(len(rows))],
+            "gens": [g.get_state().cpu().numpy() for g in gens]}
+
+
+def mesh_rank(rank: int, dims: tuple, inp: dict) -> dict:
+    """One rank of the mesh phase (started by ``mesh.launch``): its (dp, lm)
+    mesh on the card, then the refinement of main's run clean and drifted,
+    the sharded solver's communication count (where asked) and its rows of
+    the segments' states through the dp form of the batched step."""
+    m = mesh_lib.make_mesh(*dims)
+    out = {"coord": [m.coord["dp"], m.coord["lm"]], "backend": m.backend, "device": str(m.device),
+           "jax_free": not any(k.split(".")[0] in ("jax", "jaxlib", "pmv_tpu") for k in sys.modules)}
+    for form in ("clean", "drifted"):
+        with np.load(Path(inp["tmp"]) / f"mesh_run_{form}.npz") as z:
+            run = convert.run_from_reference(dict(z), m.device)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        R, t = global_refine.global_bundle_adjust(run, m, **REFINE)
+        torch.cuda.synchronize()
+        out[f"refine.{form}"] = {"R": np.stack(R), "t": np.stack(t), "launches": counts(),
+                                 "seconds": time.perf_counter() - t0}
+    if inp["comm"]:
+        for Ls in COMM_LS:
+            a = probe.weak_ba_args(m.shape["lm"], Ls)
+            args = [x.repeat((m.shape["dp"],) + (1,) * (x.dim() - 1)) for x in a[:7]] + [a[7]]
+            out[f"comm.{Ls}"] = probe.comm_profile(m, args, iters=2)
+    rows = multi_seq.local_rows(m, SEGMENTS)
+    out["multi_seq"] = step_rows(m, rows, inp["tmp"], inp["step_cfg"], inp["chunk"])
+    out["rebuilt"] = build.build_seconds is not None
+    return out
+
+
+def launch_mesh(nprocs: int, backend: str, dims: tuple, inp: dict) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    res = mesh_lib.launch(mesh_rank, nprocs, backend=backend, device_type="cuda",
+                          args=(dims, inp), timeout=MESH_TIMEOUT)
+    return res, time.perf_counter() - t0
+
+
+def same(a, b) -> bool:
+    """Equal bit for bit (dicts of numpy arrays, lists of them)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def phase_mesh(paths: dict, tmp: str, n_frames: int, main: MainRun, seg_line: dict, smi: str) -> dict:
+    """The mesh forms on the card: one NCCL rank on a (1, 1) mesh, whose
+    every all-reduce is the identity, bit for bit against one device; then
+    4 ranks sharing the card on a (2, 2) mesh over gloo (NCCL refuses two
+    ranks on one device): the ranks equal bit for bit, the refinement (of
+    ``MainRun``'s runs, whose map slots fill every lm shard) within
+    ``MESH_REFINE_BAR`` of one device and under the refine bars, the sharded
+    solver's communication per LM iteration the same at two landmark counts,
+    and the dp form of the batched step equal row for row to the one-process
+    loop, with no collective and each state's launches those of its segment
+    in ``segmented``."""
+    t_prep = time.perf_counter()
+    for form, run in main.runs.items():
+        np.savez(Path(tmp) / f"mesh_run_{form}.npz", **run)
+    cfg = vo_config(paths, tmp, n_frames, **MAIN_CFG)
+    seg_pipe = SegmentedPipeline(cfg, segments=SEGMENTS, device="cuda")
+    seg = seg_pipe.seed_segments()
+    for b, (state, gen) in enumerate(zip(seg.states, seg.gens)):
+        checkpoint.save_fused_state(state, Path(tmp) / f"mesh_state{b}.npz", generator=gen)
+    imgs = np.stack([np.stack([img for _, img in FramePrefetcher(seg_pipe.file_names[s + 1: s + 1 + seg.L])])
+                     for s in seg.starts])
+    np.savez(Path(tmp) / "mesh_step.npz", imgs=imgs, gts=seg.gt_steps, K=seg_pipe.K.cpu().numpy())
+    inp = {"tmp": tmp, "step_cfg": seg.step_cfg, "chunk": max(1, cfg.chunk_frames), "comm": False}
+    one = step_rows(None, range(SEGMENTS), tmp, seg.step_cfg, inp["chunk"])
+    del seg, seg_pipe
+    prep_s = time.perf_counter() - t_prep
+
+    nccl1, nccl1_s = launch_mesh(1, "nccl", (1, 1), inp)
+    shared4, shared4_s = launch_mesh(4, "gloo", (2, MESH_LM), dict(inp, comm=True))
+
+    def rows_equal(r) -> bool:
+        got = r["multi_seq"]
+        return all(same(got["states"][i], one["states"][b]) and same(got["gens"][i], one["gens"][b])
+                   for i, b in enumerate(got["rows"]))
+
+    def launches_ok(r) -> bool:
+        got = r["multi_seq"]
+        return got["launches_by_state"] == [seg_line["launches_by_segment"][b] for b in got["rows"]]
+
+    r1 = nccl1[0]
+    nccl1_line = {
+        "backend": r1["backend"], "mesh": [1, 1], "ranks": 1, "seconds": nccl1_s,
+        "refine_bit_equal_to_one_device": {f: same([r1[f"refine.{f}"]["R"], r1[f"refine.{f}"]["t"]],
+                                                   list(main.card[f])) for f in main.card},
+        "refine_seconds": {f: r1[f"refine.{f}"]["seconds"] for f in main.card},
+        "multi_seq_rows_bit_equal": rows_equal(r1), "multi_seq_launches_by_state_ok": launches_ok(r1),
+        "multi_seq_collectives": len(r1["multi_seq"]["collectives"]),
+        "multi_seq_seconds": r1["multi_seq"]["seconds"], "multi_seq_launches": r1["multi_seq"]["launches"],
+    }
+    ref = shared4[0]
+    err = {f: max(float(np.abs(ref[f"refine.{f}"][k] - main.card[f][i]).max()) for i, k in enumerate("Rt"))
+           for f in main.card}
+    ate = {f: [main.ate(main.runs[f]["t"]), main.ate(ref[f"refine.{f}"]["t"])] for f in main.card}
+    drift = [mean_dist(main.runs["drifted"]["t"], main.runs["clean"]["t"]),
+             mean_dist(ref["refine.drifted"]["t"], main.runs["clean"]["t"])]
+    comm = {Ls: ref[f"comm.{Ls}"] for Ls in COMM_LS}
+    shared4_line = {
+        "backend": sorted({r["backend"] for r in shared4}), "mesh": [2, 2], "ranks": 4,
+        "devices": sorted({r["device"] for r in shared4}), "coords": [r["coord"] for r in shared4],
+        "seconds": shared4_s,
+        "ranks_bit_equal": {f"refine.{f}": all(same([r[f"refine.{f}"]["R"], r[f"refine.{f}"]["t"]],
+                                                    [ref[f"refine.{f}"]["R"], ref[f"refine.{f}"]["t"]])
+                                               for r in shared4) for f in main.card},
+        "refine_max_abs_vs_one_device": err, "refine_ate_m": ate, "refine_drift_m": drift,
+        "refine_seconds": {f: [r[f"refine.{f}"]["seconds"] for r in shared4] for f in main.card},
+        "comm_by_Ls": comm,
+        "multi_seq_rows": [r["multi_seq"]["rows"] for r in shared4],
+        "multi_seq_rows_bit_equal": [rows_equal(r) for r in shared4],
+        "multi_seq_launches_by_state_ok": [launches_ok(r) for r in shared4],
+        "multi_seq_collectives": [len(r["multi_seq"]["collectives"]) for r in shared4],
+        "multi_seq_seconds": [r["multi_seq"]["seconds"] for r in shared4],
+        "multi_seq_launches": {k: sum(r["multi_seq"]["launches"][k] for r in shared4) for k in WRAPPERS},
+    }
+    line = {"phase": "mesh", "card": smi, "prepare_seconds": prep_s,
+            "table_entries_by_lm_shard": table_entries_by_shard(main.runs["clean"], MESH_LM),
+            "one_device_refine_seconds": main.card_seconds,
+            "one_device_multi_seq_seconds": one["seconds"], "nccl1": nccl1_line, "shared4": shared4_line,
+            "ranks_rebuilt_kernels": [r["rebuilt"] for r in nccl1 + shared4],
+            "ranks_jax_free": all(r["jax_free"] for r in nccl1 + shared4),
+            "bars": "nccl1: refine and rows bit-equal to one device; shared4: ranks bit-equal, refine "
+                    f"within {MESH_REFINE_BAR} of one device and under the refine bars, all-reduces "
+                    "per LM iteration equal at both Ls; both: no collective in the step, launches "
+                    "by state = segmented's"}
+    emit(line)
+    fails = []
+    if not all(line["table_entries_by_lm_shard"]):
+        fails.append("an lm shard of the refinement holds no observation")
+    if r1["backend"] != "nccl" or shared4_line["backend"] != ["gloo"]:
+        fails.append("backends")
+    if any(line["ranks_rebuilt_kernels"]) or not line["ranks_jax_free"]:
+        fails.append("a rank rebuilt the kernels or imported jax")
+    if not all(nccl1_line["refine_bit_equal_to_one_device"].values()):
+        fails.append("nccl1 refine differs from one device")
+    if not all(shared4_line["ranks_bit_equal"].values()):
+        fails.append("shared4 ranks' refinements differ")
+    if not max(err.values()) <= MESH_REFINE_BAR:
+        fails.append(f"shared4 refine differs from one device by {err}")
+    scale, add = REFINE_CLEAN_BAR
+    if not ate["clean"][1] < scale * ate["clean"][0] + add:
+        fails.append(f"shared4 clean ATE went {ate['clean']}")
+    if not (ate["drifted"][1] < ate["drifted"][0] and drift[1] < REFINE_DRIFT_LEFT * drift[0]):
+        fails.append(f"shared4 drifted ATE went {ate['drifted']}, drift {drift}")
+    for r in nccl1 + shared4:
+        if any(v for f in main.card for v in r[f"refine.{f}"]["launches"].values()):
+            fails.append("a refinement launched a kernel")
+    per_iter = [comm[Ls]["per_iteration"] for Ls in COMM_LS]
+    if not (per_iter[0] == per_iter[1] and per_iter[0]["all_reduce"]["calls"] > 0
+            and per_iter[0]["all_reduce"]["elements"] > 0):
+        fails.append(f"all-reduces per LM iteration differ with Ls: {per_iter}")
+    if not (nccl1_line["multi_seq_rows_bit_equal"] and all(shared4_line["multi_seq_rows_bit_equal"])):
+        fails.append("multi_seq rows differ from the one-process loop")
+    if not (nccl1_line["multi_seq_launches_by_state_ok"]
+            and all(shared4_line["multi_seq_launches_by_state_ok"])):
+        fails.append("multi_seq launches by state are not segmented's")
+    if nccl1_line["multi_seq_collectives"] or any(shared4_line["multi_seq_collectives"]):
+        fails.append("the dp step issued a collective")
+    if fails:
+        raise AssertionError(f"mesh: {fails}")
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=45, help="synthetic frames of the main path and knn_hd")
@@ -1318,7 +1607,8 @@ def main() -> int:
             main_line, main_pipe = phase_main(paths, tmp, args.frames, data_s)
             # refine the main run at once, so that no later phase's peak
             # memory holds its state
-            refine = phase_refine(main_pipe)["launches"]
+            refine_line = phase_refine(main_pipe)
+            main_run = MainRun(main_pipe)
             del main_pipe
             by_path = {"main": main_line["launches"],
                        "knn_hd": phase_knn_hd(paths, tmp, args.frames)["launches"],
@@ -1329,8 +1619,12 @@ def main() -> int:
             by_path["surface.cli"] = surface["cli"]["launches"]
             by_path["cont_tri"] = phase_cont_tri(paths, tmp, args.frames, main_line)["launches"]
             by_path["steady"] = phase_steady(paths, tmp, args.frames)["launches"]
-            by_path["segmented"] = phase_segmented(paths, tmp, args.frames, main_line)["launches"]
-            by_path["refine"] = refine
+            seg_line = phase_segmented(paths, tmp, args.frames, main_line)
+            by_path["segmented"] = seg_line["launches"]
+            by_path["refine"] = refine_line["launches"]
+            mesh_line = phase_mesh(paths, tmp, args.frames, main_run, seg_line, smi)
+            by_path["mesh.multi_seq"] = mesh_line["shared4"]["multi_seq_launches"]
+            by_path["mesh.multi_seq.nccl1"] = mesh_line["nccl1"]["multi_seq_launches"]
         launches = by_path["main"]
 
     kernels = []

@@ -38,6 +38,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.linalg import gj_solve
@@ -243,9 +244,26 @@ def assemble_blocks(tr, lm, obs_uv, obs_pose, obs_lm, obs_mask, pose_free, K, de
             per_pose[:, 36:], b_lm, n_obs > 0)
 
 
-def schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam):
+def all_reduce_sum(tensors, group) -> list[torch.Tensor]:
+    """Sum each of ``tensors`` (one dtype) over the process ``group`` in ONE
+    all-reduce: they are flattened into one buffer, reduced, and split
+    again. Returns new tensors of the inputs' shapes. Called through
+    ``torch.distributed`` at call time, so that a wrapper installed there
+    (``parallel.probe.count_collectives``) sees the call."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    parts = flat.split([t.numel() for t in tensors])
+    return [p.view(t.shape) for p, t in zip(parts, tensors)]
+
+
+def schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam, *, group=None):
     """Damped Schur-complement solve from assembled blocks. Returns
-    (dp (P,6), dx (L,3))."""
+    (dp (P,6), dx (L,3)).
+
+    With a process ``group`` (the ``lm`` axis of a mesh: landmark-sharded
+    BA), U, b_pose and the reduced system's partials are summed over it in
+    one all-reduce; the (6P, 6P) solve then runs redundantly on every rank,
+    and the landmark back-substitution stays local."""
     P = b_pose.shape[0]
     dtype, dev = b_pose.dtype, b_pose.device
     eyeP = torch.eye(6, dtype=dtype, device=dev)
@@ -265,9 +283,16 @@ def schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam):
     V_inv = _inv3x3(V_d)  # (L, 3, 3)
     Y = torch.einsum("lpij,ljk->lpik", Wc, V_inv)  # (L, P, 6, 3)
 
-    # Reduced camera system S = U_d - sum_l W V^-1 W^T.
+    # Reduced camera system S = U_d - sum_l W V^-1 W^T. The correction terms
+    # depend only on landmark-local blocks, so the sharded form defers the
+    # U / b_pose reduction and ships all four in ONE all-reduce per LM
+    # iteration (muV above is per landmark block, so sharded and one-device
+    # damping agree; muP below comes from the reduced U, so every rank damps
+    # alike).
     S_corr = torch.einsum("lpik,lqjk->piqj", Y, Wc)
     b_corr = torch.einsum("lpik,lk->pi", Y, b_lm)
+    if group is not None:
+        U, b_pose, S_corr, b_corr = all_reduce_sum((U, b_pose, S_corr, b_corr), group)
     muP = 1e-6 * torch.mean(torch.diagonal(U, dim1=-2, dim2=-1).abs()) + 1e-9
     U_d = U + lam * (U * eyeP) + muP * eyeP
     S = -S_corr

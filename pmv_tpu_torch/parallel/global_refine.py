@@ -1,8 +1,9 @@
 """Global trajectory refinement: windowed BA + pose-graph stitching —
-PyTorch counterpart of ``pmv_tpu/parallel/global_refine.py``, on one device.
+PyTorch counterpart of ``pmv_tpu/parallel/global_refine.py``.
 
 A finished run's trajectory is cut into overlapping windows; every window is
-bundle-adjusted against the end-of-run map (:mod:`.dist_ba`), and the
+bundle-adjusted against the end-of-run map (:mod:`.dist_ba`: on one device,
+or on a (dp, lm) mesh, windows over dp and landmark blocks over lm), and the
 windows' relative motions are reconciled into one trajectory by the
 pose-graph layer (:mod:`.pose_graph`): exactly, in float64 on the host, when
 the edges form a chain, as window edges do. The reference has no
@@ -105,45 +106,77 @@ def build_window_problems(pipe, window: int = 8, overlap: int = 2, pin: int = 0,
     return ranges, tr_list, free_list, obs_list, map_xyz, map_xyz.shape[0]
 
 
+def _solve_windows(solver, batch: int, n_lm: int, tr_list, free_list, obs_list, map_xyz, L, K, dev):
+    """Every window through ``solver`` (``dist_ba.make_distributed_ba``'s)
+    on ``dev``, laid out as the JAX package lays them out: each window's
+    observations partitioned by ``n_lm`` landmark shards and padded to one
+    O_s, the map padded to a multiple of the shards, the windows in batches
+    of ``batch`` (on a mesh its dp size; the last batch padded by repeats,
+    whose duplicates are dropped). Returns tr (D, P, 6) on ``dev``."""
+    D = len(tr_list)
+    parts = [dist_ba.partition_obs_by_landmark(uv, pose, lm, np.ones(len(uv), bool), L, n_lm)
+             for uv, pose, lm in obs_list]
+    O_s = max(p[4] for p in parts)
+
+    def repad(p):
+        uv, pose, lml, msk, o_s, _ = p
+        pad = ((0, 0), (0, O_s - o_s))
+        return (np.pad(uv.reshape(n_lm, o_s, 2), pad + ((0, 0),)).reshape(-1, 2),
+                *(np.pad(a.reshape(n_lm, o_s), pad).reshape(-1) for a in (pose, lml, msk)))
+
+    lm_pad = np.zeros((parts[0][5] * n_lm, 3), np.float32)
+    lm_pad[:L] = map_xyz
+
+    def stack(arrays, dtype):
+        return torch.from_numpy(np.stack(arrays)).to(dev, dtype)
+
+    rows: list = [None] * D
+    for b0 in range(0, D, batch):
+        idx = list(range(b0, min(b0 + batch, D)))
+        idx += idx[-1:] * (batch - len(idx))
+        rep = [repad(parts[i]) for i in idx]
+        tr_out, _, _, _ = solver(
+            stack([tr_list[i] for i in idx], torch.float32),
+            stack([lm_pad] * batch, torch.float32),
+            stack([r[0] for r in rep], torch.float32), stack([r[1] for r in rep], torch.int32),
+            stack([r[2] for r in rep], torch.int32), stack([r[3] for r in rep], torch.bool),
+            stack([free_list[i] for i in idx], torch.bool), K,
+        )
+        for slot, i in enumerate(idx[: len(set(idx))]):
+            if rows[i] is None:
+                rows[i] = tr_out[slot]
+    return torch.stack(rows)
+
+
 def global_bundle_adjust(pipe, mesh=None, window: int = 8, overlap: int = 2, iters: int = 5,
                          mode: str = "alternate", device=None):
-    """Refine the whole trajectory: windowed BA on ``device`` (``None``: the
-    GPU, an error without one) + pose-graph stitch. Returns (R_list,
-    t_list), float64 numpy, and sets ``pipe.R`` / ``pipe.t`` to them.
+    """Refine the whole trajectory: windowed BA + pose-graph stitch. Returns
+    (R_list, t_list), float64 numpy, and sets ``pipe.R`` / ``pipe.t`` to
+    them.
+
+    ``mesh=None`` runs the windows on ``device`` (``None``: the GPU, an
+    error without one). With a mesh (``parallel.mesh.make_mesh``) they run
+    on the mesh's device, windows over dp and landmark shards over lm; every
+    rank calls this with the same ``pipe`` and returns the same trajectory.
 
     ``mode="alternate"`` (the default) alternates map-anchored pose steps
     with landmark steps: gauge-free per window, so a drifted trajectory is
     pulled back toward the map instead of the window fitting its own noise.
-    ``mesh=None`` means one device; a mesh is ROADMAP Queue 1 item 5.
     """
-    if mesh is not None:
-        raise NotImplementedError(dist_ba.MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    elif device is not None:
+        raise ValueError("with a mesh the refinement runs on the mesh's device; pass device=None")
+    else:
+        dev = mesh.device
     ranges, tr_list, free_list, obs_list, map_xyz, L = build_window_problems(
         pipe, window, overlap, pin=0 if mode == "alternate" else 2
     )
-    D = len(ranges)
-    # One landmark shard: the partition compacts each window's observations;
-    # all windows are padded to the longest (padding is masked and inert).
-    parts = [
-        dist_ba.partition_obs_by_landmark(uv, pose, lm, np.ones(len(uv), bool), L, 1)
-        for uv, pose, lm in obs_list
-    ]
-    O = max(p[4] for p in parts)
-
-    def stack(i, dtype):
-        rows = [np.pad(p[i], [(0, O - len(p[i]))] + [(0, 0)] * (p[i].ndim - 1)) for p in parts]
-        return torch.from_numpy(np.stack(rows)).to(dev, dtype)
-
-    solver = dist_ba.make_distributed_ba(None, iters=iters, mode=mode)
-    tr_out, _, _, _ = solver(
-        torch.from_numpy(np.stack(tr_list)).to(dev),
-        torch.from_numpy(map_xyz).to(dev, torch.float32).expand(D, L, 3),
-        stack(0, torch.float32), stack(1, torch.int32), stack(2, torch.int32),
-        stack(3, torch.bool),
-        torch.from_numpy(np.stack(free_list)).to(dev),
-        _f32(pipe.K.cpu(), dev),
-    )
+    K = _f32(pipe.K.cpu(), dev)
+    solver = dist_ba.make_distributed_ba(mesh, iters=iters, mode=mode)
+    # One device: one landmark shard, all windows in one batch.
+    batch, n_lm = (len(ranges), 1) if mesh is None else (mesh.shape["dp"], mesh.shape["lm"])
+    tr_out = _solve_windows(solver, batch, n_lm, tr_list, free_list, obs_list, map_xyz, L, K, dev)
     R_w, t_w = geo.ba_params_to_pose(tr_out)
     R_w, t_w = R_w.cpu().numpy(), t_w.cpu().numpy()
 

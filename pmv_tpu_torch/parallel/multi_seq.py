@@ -1,16 +1,20 @@
 """Multi-sequence visual odometry: a batch of independent VO states —
-PyTorch counterpart of ``pmv_tpu/parallel/multi_seq.py``, on one device.
+PyTorch counterpart of ``pmv_tpu/parallel/multi_seq.py``.
 
 Independent sequences, or independent segments of one long sequence
 (``pipeline.segmented``), are tracked side by side. The JAX package maps
 ``fused.chunk_step`` over the batch with ``lax.map`` (a scan that keeps real
 per-sequence conditionals) and, with a mesh, shards the batch over the
-``dp`` axis. Here the batch is a loop over its B states on one device:
-each goes through the port's ``chunk_step`` with its own
-``torch.Generator``, so every state launches the kernels it would launch
-alone and ends exactly where it would alone. A batched launch of the
-kernels and a mesh of several devices (ROADMAP Queue 1 item 5) are not
-ported.
+``dp`` axis with ``shard_map``, replicated over ``lm``. Here the batch is a
+loop over its states: each goes through the port's ``chunk_step`` with its
+own ``torch.Generator``, so every state launches the kernels it would
+launch alone and ends exactly where it would alone. On a mesh a rank steps
+its own rows of the batch (:func:`local_rows`; ranks of one dp row step the
+same rows), and the step issues no collective: the sequences are
+independent, as the JAX package's
+``tests/test_parallel_flow.py::test_dp_step_has_no_collectives`` holds
+there. A caller that needs the whole batch all-gathers it over dp after the
+step. A batched launch of the kernels is not ported.
 
 A batched state is a ``StepState`` whose every tensor has a leading batch
 axis; ``k`` stays one host integer, the same for every state.
@@ -21,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from pmv_tpu_torch import resolve_device
-from pmv_tpu_torch.parallel.dist_ba import MESH_NOT_PORTED
+from pmv_tpu_torch.parallel.mesh import Mesh
 from pmv_tpu_torch.pipeline import fused
 
 Tensor = torch.Tensor
@@ -71,18 +75,41 @@ def _put(batched: fused.StepState, b: int, state: fused.StepState) -> None:
             view.copy_(src)
 
 
-def make_batched_chunk_step(mesh, cfg: fused.StepConfig, device=None):
-    """The batched chunk step on ``device`` (``None``: the GPU, an error
-    without one). ``mesh=None`` means one device; a mesh is not ported.
+def local_rows(mesh: Mesh, B: int) -> range:
+    """The rows of a batch of ``B`` states that this rank steps on
+    ``mesh``: [d*B/dp, (d+1)*B/dp) for dp coordinate d, the block
+    ``shard_map`` gives it in the JAX package."""
+    dp, d = mesh.shape["dp"], mesh.coord["dp"]
+    if B % dp:
+        raise ValueError(f"a batch of {B} states does not split over dp={dp}")
+    n = B // dp
+    return range(d * n, (d + 1) * n)
+
+
+def make_batched_chunk_step(mesh: Mesh | None, cfg: fused.StepConfig, device=None):
+    """The batched chunk step: on ``device`` (``None``: the GPU, an error
+    without one) with ``mesh=None``; on the mesh's device with a mesh, where
+    it takes this rank's rows of the batch (:func:`local_rows`) and issues
+    no collective.
 
     Signature: (state (B, ...), imgs_u8 (B, C, H, W), gt_steps (B, C),
     gens (B generators or None), K (3, 3)) -> (state, stats), ``stats`` a
-    list of B lists of per-frame stats. The batched state is updated in
-    place and returned with the new ``k``.
+    list of B lists of per-frame stats, B the rows the caller hands in. The
+    batched state is updated in place and returned with the new ``k``.
     """
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh) or None, not {type(mesh).__name__}")
+    elif device is not None:
+        raise ValueError("with a mesh the step runs on the mesh's device; pass device=None")
+    else:
+        dev = mesh.device
+        if cfg.response == "min_eig":
+            # The JAX package swaps its Pallas response for the XLA one under
+            # shard_map; in the port both names run the min_eig_response
+            # kernel (frontend/corners.py), so the swap changes nothing.
+            cfg = cfg._replace(response="min_eig_xla")
 
     @torch.no_grad()
     def batched(state, imgs_u8, gt_steps, gens, K):

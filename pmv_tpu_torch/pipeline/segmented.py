@@ -16,6 +16,7 @@ somewhat higher than the sequential run's.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -129,7 +130,14 @@ class SegmentedPipeline(OdometryPipeline):
         )
 
     @torch.no_grad()
-    def run(self) -> dict:
+    def seed_segments(self) -> SimpleNamespace:
+        """Everything :meth:`run` does before its first step: the init frame
+        (segment 0's start), the cut of the transitions into B segments of L,
+        each segment's state seeded at its first frame, the segments'
+        generators and per-frame ground-truth steps. Returns them as a
+        namespace (``L``, ``starts``, ``step_cfg``, ``states``, ``gens``,
+        ``gt_steps`` (B, L)); also used to hand the segments to the ranks of
+        a mesh (``parallel.multi_seq.local_rows``)."""
         cfg = self.cfg
         B = self.segments
         stop = min(cfg.frames, len(self.file_names), len(self.gt_t))
@@ -160,15 +168,23 @@ class SegmentedPipeline(OdometryPipeline):
         for s in seg_starts:
             (_, img), = FramePrefetcher([self.file_names[s]])
             states.append(self._seed_state(img, step_cfg))
-        state = multi_seq.batch_states(states)
-        del states
-        step = multi_seq.make_batched_chunk_step(None, step_cfg, device=self.device)
-        gens = segment_generators(cfg.seed, B, self.device)
 
         gt_steps = np.zeros((B, L), np.float32)
         for b, s in enumerate(seg_starts):
             for i in range(L):
                 gt_steps[b, i] = np.linalg.norm(self.gt_t[s + i + 1] - self.gt_t[s + i])
+        return SimpleNamespace(L=L, starts=seg_starts, step_cfg=step_cfg, states=states,
+                               gens=segment_generators(cfg.seed, B, self.device), gt_steps=gt_steps)
+
+    @torch.no_grad()
+    def run(self) -> dict:
+        cfg = self.cfg
+        B = self.segments
+        seg = self.seed_segments()
+        L, seg_starts, step_cfg, gens, gt_steps = seg.L, seg.starts, seg.step_cfg, seg.gens, seg.gt_steps
+        state = multi_seq.batch_states(seg.states)
+        del seg
+        step = multi_seq.make_batched_chunk_step(None, step_cfg, device=self.device)
         frames = [iter(FramePrefetcher(self.file_names[s + 1: s + 1 + L])) for s in seg_starts]
 
         self._watch.tick()

@@ -56,6 +56,7 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.parallel", "pmv_tpu_torch.parallel.pose_graph",
         "pmv_tpu_torch.parallel.dist_ba", "pmv_tpu_torch.parallel.global_refine",
         "pmv_tpu_torch.parallel.multi_seq", "pmv_tpu_torch.pipeline.segmented",
+        "pmv_tpu_torch.parallel.mesh", "pmv_tpu_torch.parallel.probe",
     ):
         assert name in MODULES
 
@@ -128,8 +129,8 @@ def test_cli_run_without_gpu_fails(tmp_path):
 
 def test_unported_options_are_refused_not_ignored(tmp_path):
     """Every option of ``run`` is ported, and so is the steady-state step
-    (refused before): it runs; what is not ported, a device mesh, is
-    refused. The options that were refused before run now."""
+    (refused before): it runs. The options that were refused before run
+    now; a mesh argument that is not a ``parallel.mesh.Mesh`` is refused."""
     import torch
 
     from pmv_tpu_torch.config import VOConfig
@@ -162,5 +163,5 @@ def test_unported_options_are_refused_not_ignored(tmp_path):
 
     for refused in (lambda: dist_ba.make_distributed_ba(mesh=object()),
                     lambda: multi_seq.make_batched_chunk_step(object(), fused.StepConfig())):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             refused()

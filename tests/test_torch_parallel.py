@@ -319,17 +319,6 @@ class TestGlobalRefine:
         np.testing.assert_allclose(np.stack(R_out), np.stack(R_ref), rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("call", ["make_distributed_ba", "global_bundle_adjust"])
-def test_a_mesh_is_refused(call, finished):
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        if call == "make_distributed_ba":
-            dist_ba.make_distributed_ba(mesh)
-        else:
-            global_refine.global_bundle_adjust(
-                convert.run_from_reference(finished["run"], "cpu"), mesh, device="cpu")
-
-
 def test_no_device_means_gpu(finished):
     """``global_bundle_adjust`` with no device runs on the GPU and raises
     without one."""

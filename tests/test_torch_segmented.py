@@ -244,11 +244,11 @@ class TestMultiSeq:
 
 @pytest.mark.parametrize("call", ["make_batched_chunk_step", "SegmentedPipeline"])
 def test_gpu_by_default_and_no_mesh(call, tmp_path):
-    """A mesh is refused (ROADMAP Queue 1 item 5); no device means the GPU,
-    an error without one."""
+    """A mesh argument that is not a ``parallel.mesh.Mesh`` is refused; no
+    device means the GPU, an error without one."""
     cfg = fused.StepConfig(**CFG)
     if call == "make_batched_chunk_step":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             multi_seq.make_batched_chunk_step(object(), cfg, device="cpu")
         make = lambda: multi_seq.make_batched_chunk_step(None, cfg)  # noqa: E731
     else:
