@@ -56,7 +56,7 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.parallel", "pmv_tpu_torch.parallel.pose_graph",
         "pmv_tpu_torch.parallel.dist_ba", "pmv_tpu_torch.parallel.global_refine",
         "pmv_tpu_torch.parallel.multi_seq", "pmv_tpu_torch.pipeline.segmented",
-        "pmv_tpu_torch.parallel.mesh", "pmv_tpu_torch.parallel.probe",
+        "pmv_tpu_torch.parallel.mesh", "pmv_tpu_torch.parallel.probe", "pmv_tpu_torch.bench",
     ):
         assert name in MODULES
 
