@@ -85,11 +85,13 @@ except ValueError:  # the child's make_pipeline reports the malformed overrides
 WARMUP_FRAMES = 5 + _CHUNK + 6 if _SEGS <= 1 else 5 + _SEGS * _CHUNK + 2
 
 
-def build_dataset(n_frames: int) -> dict:
+def build_dataset(n_frames: int, suffix: str = "", **scene) -> dict:
     """The corridor of ``n_frames`` frames as a KITTI layout under
     ``CACHE``, written once: one directory per length, marked ``ok`` when
-    complete, so that runs of other lengths never write into one layout."""
-    d = CACHE / f"seq_{n_frames}_{SHAPE[0]}x{SHAPE[1]}"
+    complete, so that runs of other lengths never write into one layout.
+    ``scene``: more ``make_sequence`` keywords (a scene family's), whose
+    layout goes into a directory named with ``suffix``."""
+    d = CACHE / f"seq_{n_frames}_{SHAPE[0]}x{SHAPE[1]}{suffix}"
     marker = d / "ok"
     paths = {
         "image_dir": str(d / "image_0"),
@@ -106,6 +108,7 @@ def build_dataset(n_frames: int) -> dict:
         speed=1.0,
         yaw_rate=0.004,
         seed=0,
+        **scene,
     )
     synthetic.write_kitti_layout(seq, d)
     marker.touch()

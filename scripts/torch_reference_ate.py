@@ -1,13 +1,26 @@
 """The JAX package's trajectory error at the configuration of one of
 chip_smoke.py's paths (``knn_hd``, ``knn_good``, ``cont_tri``,
-``segmented`` or ``main``), run on the CPU: the yardstick that path's ATE bar
-on the card is set from.
+``segmented``, ``main`` or ``parity``), run on the CPU: the yardstick that
+path's ATE bar on the card is set from.
 
     JAX_PLATFORMS=cpu python3 scripts/torch_reference_ate.py
-        [--path knn_hd|knn_good|cont_tri|segmented|main] [--frames N] [--seeds 0 1 2]
+        [--path knn_hd|knn_good|cont_tri|segmented|main|parity]
+        [--family corridor|photo|stopgo] [--frames N] [--seeds 0 1 2]
+
+``parity`` is the strict-parity configuration of the accuracy sweep
+(``pmv_tpu_torch.parity_sweep.PARITY``: LK window 32, PnP 8 px, essential
+1 px, reseed coupled at ``tracked_features_tol``) at 512 feature and 8192
+map slots; ``main`` is also the sweep's tuned configuration. ``--family``
+renders the sweep's scene family (``photo``: sensor noise, exposure drift
+and vignetting; ``stopgo``: a near stop every 80 frames) in place of the
+clean corridor; on ``stopgo`` each run also reports the motion gate's
+rejections, the bootstrap frames inside a stop and the estimated step of
+every frame of a stop beside the ground truth's. ``--diag DIR`` also dumps
+each run as scripts/diag_seed.py does (for ``python3 -m pmv_tpu_torch.diag
+analyze``).
 
 ``--frames`` defaults to the path's frames in chip_smoke.py (20 for
-``knn_good``, 45 for the others). ``segmented`` runs ``pmv_tpu``'s
+``knn_good``, 100 on ``stopgo``, 45 for the others). ``segmented`` runs ``pmv_tpu``'s
 ``SegmentedPipeline`` with 4 segments at the main configuration; the other
 paths run ``OdometryPipeline.run()`` and also count the frames that took the
 PnP branch and the bootstrap. ``--refine`` also refines each finished run with
@@ -62,25 +75,42 @@ MAIN = dict(
     init_frames=5, min_tracked_features=400, tracked_features_tol=150,
     bundle_size=5, max_iterations=5, feature_capacity=512, map_capacity=8192,
 )
+# The accuracy sweep's strict-parity overrides (scripts/parity_sweep.py's
+# PARITY) at the sweep's slot counts: chip_smoke.py's PARITY_CFG
+PARITY = dict(
+    lk_window=32, ransac_pnp_thresh=8.0, ransac_e_thresh=1.0, reseed_tol=0, bundle_size=5,
+    max_iterations=5, min_tracked_features=400, tracked_features_tol=150, init_frames=5,
+    feature_capacity=512, map_capacity=8192,
+)
 PATHS = {"knn_hd": KNN_HD, "knn_good": dict(MAIN, matcher="knn"),
-         "cont_tri": dict(MAIN, cont_tri=1), "segmented": MAIN, "main": MAIN}
+         "cont_tri": dict(MAIN, cont_tri=1), "segmented": MAIN, "main": MAIN, "parity": PARITY}
+# The sweep's scene families (scripts/parity_sweep.py's FAMILY_KW)
+FAMILY_KW = {
+    "corridor": {},
+    "photo": dict(noise_std=4.0, exposure_drift=0.25, vignette=0.3),
+    "stopgo": dict(stop_every=80, stop_len=10),
+}
 # chip_smoke.py's PATH_FRAMES (knn_good) and its default --frames
 FRAMES = {"knn_good": 20}
+# chip_smoke.py's frames of the stop-go run: past the first stop (80-89)
+STOPGO_FRAMES = 100
 SEGMENTS = 4  # chip_smoke.py's segmented phase
 
 
 class FrameKinds:
     """While active, every ``fused.chunk_step`` of ``OdometryPipeline.run``
-    also hands its per-frame ``used_pnp`` to ``pnp`` (read back after the
-    run)."""
+    also hands its per-frame stats (tracked, n3d, used_pnp, inliers,
+    accepted) to ``stats`` (read back after the run)."""
+
+    KEYS = ("tracked", "n3d", "used_pnp", "inliers", "accepted")
 
     def __enter__(self):
-        self.pnp = []
+        self.stats = []
         self.orig = fused.chunk_step
 
         def recording(*args, **kw):
             state, stats = self.orig(*args, **kw)
-            self.pnp.append(stats["used_pnp"])
+            self.stats.append([stats[k] for k in self.KEYS])
             return state, stats
 
         fused.chunk_step = recording
@@ -89,9 +119,65 @@ class FrameKinds:
     def __exit__(self, *exc):
         fused.chunk_step = self.orig
 
+    def table(self) -> np.ndarray:
+        """(tracked frames, 5) int32: scripts/diag_seed.py's ``stats``."""
+        if not self.stats:
+            return np.zeros((0, 5), np.int32)
+        return np.concatenate([np.stack([np.asarray(v, np.int64) for v in chunk], 1)
+                               for chunk in self.stats]).astype(np.int32)
+
+    def flags(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per tracked frame: used_pnp, accepted."""
+        t = self.table()
+        return t[:, 2].astype(bool), t[:, 4].astype(bool)
+
     def counts(self) -> dict:
-        used = np.concatenate([np.asarray(u) for u in self.pnp]) if self.pnp else np.zeros(0, bool)
-        return {"pnp_frames": int(used.sum()), "bootstrap_frames": int((~used).sum())}
+        used, accepted = self.flags()
+        return {"pnp_frames": int(used.sum()), "bootstrap_frames": int((~used).sum()),
+                "gate_rejections": int((~accepted).sum())}
+
+
+def write_diag(pipe, stats: np.ndarray, path: Path) -> None:
+    """The run as scripts/diag_seed.py dumps one (``stats``, ``err``,
+    ``t_est``, ``gt``, ``off``), for ``python3 -m pmv_tpu_torch.diag analyze``."""
+    t_est = np.stack(pipe.t)
+    gt = pipe.gt_t.copy()
+    gt[:, 2] *= -1
+    off = pipe.init_offset
+    n = min(len(t_est), len(gt) - off)
+    err = np.linalg.norm((t_est[1:n] - t_est[0]) - (gt[off + 1 : off + n] - gt[off]), axis=1)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, stats=stats, err=err, t_est=t_est, gt=gt, off=off)
+
+
+def stop_report(pipe, used_pnp: np.ndarray, accepted: np.ndarray, stop_every: int,
+                stop_len: int) -> dict:
+    """What a stop-go run did in its stops (chip_smoke.py's ``stop_report``):
+    the transitions from frame f to f + 1 with f in a stop (f in [s, s +
+    stop_len) for s = stop_every, 2 stop_every + stop_len, ...; the ground
+    truth creeps 0.02 m a frame there), each with the estimated step (pose
+    i - 1 to pose i, i = f - init_offset + 1), the ground truth's, whether it
+    was a bootstrap frame and whether the gate rejected it."""
+    off, n = pipe.init_offset, len(pipe.t)
+    t = np.stack(pipe.t)
+    gt = pipe.gt_t
+    rows = []
+    s = stop_every
+    while s < off + n:
+        for f in range(s, s + stop_len):
+            i = f - off + 1
+            if 1 <= i < n:
+                rows.append({"frame": f, "step_m": float(np.linalg.norm(t[i] - t[i - 1])),
+                             "gt_step_m": float(np.linalg.norm(gt[f + 1] - gt[f])),
+                             "bootstrap": bool(not used_pnp[i - 1]),
+                             "gate_rejected": bool(not accepted[i - 1])})
+        s += stop_every + stop_len
+    errs = [abs(r["step_m"] - r["gt_step_m"]) for r in rows]
+    return {"stop_frames": len(rows),
+            "stop_bootstrap_frames": [r["frame"] for r in rows if r["bootstrap"]],
+            "stop_gate_rejections": [r["frame"] for r in rows if r["gate_rejected"]],
+            "stop_step_m": [r["step_m"] for r in rows],
+            "stop_step_err_max_m": max(errs) if errs else None}
 
 
 def rebased_ate(pipe) -> tuple[float, float]:
@@ -157,21 +243,25 @@ def refine_forms(pipe) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--path", choices=sorted(PATHS), default="knn_hd")
+    ap.add_argument("--family", choices=sorted(FAMILY_KW), default="corridor")
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--refine", action="store_true", help="also refine each run (not segmented)")
+    ap.add_argument("--diag", default=None, metavar="DIR",
+                    help="also dump each run as scripts/diag_seed.py does, to DIR/diag_seed<S>[_<family>].npz")
     args = ap.parse_args()
 
     settings = PATHS[args.path]
     if args.frames is None:
-        args.frames = FRAMES.get(args.path, 45)
+        args.frames = STOPGO_FRAMES if args.family == "stopgo" else FRAMES.get(args.path, 45)
+    family = FAMILY_KW[args.family]
     out = {"package": "pmv_tpu", "backend": jax.default_backend(), "path": args.path,
-           "settings": settings,
+           "family": args.family, "settings": settings,
            "image": SHAPE, "frames": args.frames, "runs": []}
     with tempfile.TemporaryDirectory(prefix="pmv_ref_") as tmp:
         seq = synthetic.make_sequence(
             n_frames=args.frames, shape=SHAPE, K=synthetic.KITTI_K, density=150.0,
-            speed=1.0, yaw_rate=0.004, seed=0,
+            speed=1.0, yaw_rate=0.004, seed=0, **family,
         )
         paths = synthetic.write_kitti_layout(seq, tmp)
         for seed in args.seeds:
@@ -190,10 +280,17 @@ def main() -> int:
                 with FrameKinds() as rec:
                     res = pipe.run()
                 kinds = rec.counts()
+                if args.diag:
+                    suffix = "" if args.family == "corridor" else f"_{args.family}"
+                    write_diag(pipe, rec.table(), Path(args.diag) / f"diag_seed{seed}{suffix}.npz")
+                if "stop_every" in family:
+                    kinds.update(stop_report(pipe, *rec.flags(), family["stop_every"],
+                                             family["stop_len"]))
             ate, path = rebased_ate(pipe)
             out["runs"].append({
                 "seed": seed, "ate_rebased_m": ate, "path_m": path, "ate_share_of_path": ate / path,
-                "frames": res["frames"], "ba_calls": res["ba_calls"], **kinds,
+                "frames": res["frames"], "ba_calls": res["ba_calls"], "t_total": res["t_total"],
+                "R_total": res["R_total"], **kinds,
                 "poses_finite": bool(np.isfinite(np.stack(pipe.t)).all()),
                 "host_seconds": time.perf_counter() - t0,
             })

@@ -1,8 +1,9 @@
 """Guards of the PyTorch/CUDA port's boundaries.
 
-- No module of ``pmv_tpu_torch`` and not ``chip_smoke.py`` imports ``jax`` or
-  anything of ``pmv_tpu`` (checked on the syntax tree, and by importing every
-  module in a subprocess in which ``jax`` cannot be imported).
+- No module of ``pmv_tpu_torch`` and not ``chip_smoke.py`` imports ``jax``,
+  anything of ``pmv_tpu`` or anything under ``scripts/`` (checked on the
+  syntax tree, and by importing every module in a subprocess in which
+  ``jax`` cannot be imported).
 - ``OdometryPipeline(cfg)`` with no device raises on a machine without a CUDA
   device instead of running on the CPU.
 """
@@ -26,7 +27,7 @@ MODULES = sorted(
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "pmv_tpu")
+    return top in ("jax", "jaxlib", "pmv_tpu", "scripts")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,6 +58,7 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.parallel.dist_ba", "pmv_tpu_torch.parallel.global_refine",
         "pmv_tpu_torch.parallel.multi_seq", "pmv_tpu_torch.pipeline.segmented",
         "pmv_tpu_torch.parallel.mesh", "pmv_tpu_torch.parallel.probe", "pmv_tpu_torch.bench",
+        "pmv_tpu_torch.parity_sweep", "pmv_tpu_torch.diag",
     ):
         assert name in MODULES
 

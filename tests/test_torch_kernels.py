@@ -201,7 +201,10 @@ class TestCapture:
 # (23 x 76: smaller than a region, so every block is clipped and most of it
 # is replicated edge), the next one up, and an odd-sized one.
 LEVEL_SHAPES = [(23, 76), (46, 153), (61, 97)]
-WIN_SEARCH = [(21, 10), (15, 6)]
+# The default loop's window, a small one, and the strict-parity sweep's: an
+# even window (every template sample on a half pixel) with the default search
+# max(4, win // 2) = 16, so Rg = 84, taller than the 23 x 76 level.
+WIN_SEARCH = [(21, 10), (15, 6), (32, 16)]
 
 
 def _border_points(H, W):
@@ -422,7 +425,7 @@ class TestIterateCaptures:
             np.testing.assert_allclose(
                 g.numpy()[seen] - pts[seen], np.broadcast_to([0.8, -0.6], (seen.sum(), 2)), atol=0.1)
 
-    @pytest.mark.parametrize("win,search", WIN_SEARCH + [(32, 16)])
+    @pytest.mark.parametrize("win,search", WIN_SEARCH)
     def test_ok_limit_is_what_the_tensor_compare_used(self, win, search):
         """The kernel gets ``ok``'s upper limit as one float32. Offsets are
         placed on the float32 values within 1e-6 (and the next few beyond)
@@ -473,7 +476,7 @@ class TestIterateCaptures:
 
 
 class TestTrackCached:
-    @pytest.mark.parametrize("win", [15, 21])
+    @pytest.mark.parametrize("win", [15, 21, 32])
     def test_vs_xla_and_pallas_two_hops(self, win):
         """Full pyramid ``track_cached`` against both JAX trackers: positions
         atol 5e-3 px on slots valid in both (the bar the JAX package holds
