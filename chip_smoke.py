@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # all phases, needs one CUDA card + nvcc
     python3 chip_smoke.py --ptxas    # also print registers / shared memory
-    python3 chip_smoke.py --skip-main  # phases 1-3 only, no summary and no ok line
+    python3 chip_smoke.py --skip-main  # phases 1-3 and contraction only, no summary and no ok line
 
 Phases, each printing one JSON line as it ends:
 
@@ -15,6 +15,11 @@ Phases, each printing one JSON line as it ends:
                the plain version's time and the card's bound for the same work
                (the LK level kernel at every block size built, and its
                template stage on its own);
+   contraction — the port's eliminations on the card (``gj_solve`` and
+               ``gj_inverse`` with XLA's one rounding a step, the five-point
+               reduction, Horner with one rounding) against the same calls on
+               the CPU, bit for bit, on tests/test_torch_contraction.py's
+               seeded systems; the polish-scale solve's float64 misses;
 4. main path — a synthetic KITTI-sized corridor through
                ``OdometryPipeline(cfg, device="cuda").run()`` at the default
                configuration's full size, with the kernels' launch counts
@@ -59,8 +64,9 @@ Phases, each printing one JSON line as it ends:
                finished run (window 8, overlap 4, 8 iterations), clean and
                with a drift injected: the ATE kept and the drift pulled
                back, no kernel launched, and the same refinement of CPU
-               copies of the inputs equal to the card's within 1e-3 (it
-               runs right after the main path, which it reads);
+               copies of the inputs equal to the card's within
+               ``REFINE_CPU_BAR`` (it runs right after the main path, which
+               it reads);
 13. mesh    — the mesh forms (``parallel.mesh``): one NCCL rank on a (1, 1)
                mesh, bit for bit against one device; then 4 gloo ranks
                sharing the card on a (2, 2) mesh: main's run (its map slots
@@ -90,8 +96,12 @@ Phases, each printing one JSON line as it ends:
                from the JAX package on the CPU, and on ``stopgo`` the
                estimated step of every frame of the stop held to the ground
                truth's creep, with the gate's rejections and the bootstrap
-               frames inside the stop;
-16. the ``kernels`` summary line (launches of the main path, and per path;
+               frames inside the stop; the bootstrap frames of each family
+               held to the JAX package's range on the CPU, widened by 10 %;
+16. scaling  — ``pmv_tpu_torch.scaling_bench``'s small ``multi_seq`` leg
+               (96x160, 3 chunks of 4 frames) at B = 1 and 2, launches
+               counted: finite rows, sequence 0 the same at both;
+17. the ``kernels`` summary line (launches of the main path, and per path;
     K1 and K3 also timed at the parity shapes), the card line, and the
     final ``ok`` line.
 
@@ -123,9 +133,10 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from pmv_tpu_torch import bench, build, cli, convert, parity_sweep  # noqa: E402
+from pmv_tpu_torch import bench, build, cli, convert, parity_sweep, scaling_bench  # noqa: E402
 from pmv_tpu_torch.ba import schur_lm  # noqa: E402
 from pmv_tpu_torch.config import VOConfig  # noqa: E402
+from pmv_tpu_torch.core import linalg  # noqa: E402
 from pmv_tpu_torch.frontend import capture, corners, image, lk_kernels, min_eig  # noqa: E402
 from pmv_tpu_torch.frontend import lucas_kanade as lk  # noqa: E402
 from pmv_tpu_torch.io import prefetch, synthetic  # noqa: E402
@@ -135,6 +146,7 @@ from pmv_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from pmv_tpu_torch.pipeline import fused  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 from pmv_tpu_torch.pipeline.segmented import SegmentedPipeline  # noqa: E402
+from pmv_tpu_torch.solvers import five_point  # noqa: E402
 from pmv_tpu_torch.utils import checkpoint, profiling  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1101,6 +1113,18 @@ REFINE = dict(window=8, overlap=4, iters=8)
 # 1.5x before + 0.02 m, drifted ATE lower and under 0.8 of the drift left.
 REFINE_CLEAN_BAR = (1.5, 0.02)
 REFINE_DRIFT_LEFT = 0.8
+# How far the CPU's refinement of the drifted main run may land from the
+# card's (max abs of R and t). Only the order of the sums differs, and the
+# f32 LM loop amplifies it through its accept decisions, more so since the
+# eliminations carry the pivot row's residual as XLA computes it. On an
+# H100 80GB HBM3 at 700 W, on this run (scripts/torch_mesh_gap.py --card):
+# sound, the CPU 1.17e-3 from the card and the card 6.0e-4 to 2.77e-3 from
+# itself when the drifted poses are scaled by 1 +- 1e-6 to 4e-6; planted,
+# one LM iteration fewer 7.02e-3 and two 1.57e-2, the mesh's unreduced cost
+# 6.52e-3. The bar lies between. The JAX package's own refinement of the
+# same run moves 2.70e-3 to 6.79e-3 under those scalings (--reference, on
+# the CPU): a port whose sums moved as much could cross it.
+REFINE_CPU_BAR = 5e-3
 
 
 def clone_state(state):
@@ -1302,7 +1326,7 @@ def phase_refine(pipe) -> dict:
         "cpu_seconds": cpu_seconds, "card_vs_cpu_max_abs": err, "launches": drifted["launches"],
         "bars": f"clean: ATE after < {REFINE_CLEAN_BAR[0]} x before + {REFINE_CLEAN_BAR[1]} m; drifted: "
                 f"ATE lower and under {REFINE_DRIFT_LEFT} of the drift from the run's positions left; "
-                "the CPU's refinement of the same inputs within 1e-3 of the card's",
+                f"the CPU's refinement of the same inputs within {REFINE_CPU_BAR} of the card's",
     }
     emit(line)
     if not (clean["poses_finite"] and drifted["poses_finite"]):
@@ -1316,7 +1340,7 @@ def phase_refine(pipe) -> dict:
             and drifted["drift_m"][1] < REFINE_DRIFT_LEFT * drifted["drift_m"][0]):
         raise AssertionError(f"refine: the drifted run went {drifted['ate_m']} m ATE, "
                              f"{drifted['drift_m']} m drift")
-    if not err <= 1e-3:
+    if not err <= REFINE_CPU_BAR:
         raise AssertionError(f"refine: the CPU's refinement differs from the card's by {err}")
     return line
 
@@ -1334,12 +1358,12 @@ MESH_TIMEOUT = 300
 MESH_LM = 2
 # How far the refinement on the (2, 2) mesh may land from one device's (max
 # abs of R and t). Only the order of the sums differs, and the f32 LM loop
-# amplifies it through its accept decisions. On this card, on MainRun's
-# runs, the sound mesh landed 5.35e-5 (clean) and 1.022e-3 (drifted) from
-# one device; with a sharding fault planted in the ranks it landed 9.37e-3
-# to 9.21e-2 (the cost or the blocks left unreduced, a shard's blocks lost;
-# scripts/torch_mesh_gap.py --card). On the CPU, on tests/test_torch_mesh.py's
-# scene, the port's sound gap was up to 1.62e-3 (the same script, seeds 5-8).
+# amplifies it through its accept decisions. On an H100 80GB HBM3 at 700 W,
+# on MainRun's runs (scripts/torch_mesh_gap.py --card), the sound mesh
+# landed 2.81e-4 (clean) and 1.12e-3 (drifted) from one device; with a sharding fault
+# planted in the ranks it landed 6.52e-3 to 0.469 (the cost or the blocks
+# left unreduced, a shard's blocks lost). The sound readings of
+# REFINE_CPU_BAR's comment hold here too; the bar is the same.
 MESH_REFINE_BAR = 5e-3
 
 
@@ -1747,6 +1771,16 @@ PARITY_ATE_BAR = {"corridor": 0.06, "photo": 0.08, "stopgo": 0.12}
 # baseline. The bar, 1 m, is twice that and a moving frame's whole step: a
 # step that long in the stop is a pose running away.
 PARITY_STOP_STEP_BAR = 1.0
+# Bootstrap frames of each run, held to the JAX package's range on the CPU at
+# the same configuration and frames (the comment above: RANSAC seeds 0-7),
+# widened by 10 % and by at least one frame each way, stated before the first
+# card run that held them. Until the port mirrored XLA's fused multiply-add
+# in its eliminations it bootstrapped less (5 / 3 / 10 on the card).
+PARITY_BOOTSTRAPS = {"corridor": (6, 8), "photo": (5, 7), "stopgo": (12, 15)}
+
+
+def bootstrap_bar(lo: int, hi: int) -> tuple[int, int]:
+    return lo - max(1, round(0.1 * lo)), hi + max(1, round(0.1 * hi))
 
 
 def phase_parity(paths: dict, tmp: str, smi: str) -> dict:
@@ -1814,6 +1848,12 @@ def phase_parity(paths: dict, tmp: str, smi: str) -> dict:
             elif not run["stop_step_err_max_m"] < PARITY_STOP_STEP_BAR:
                 fails.append(f"stopgo: a step in the stop lies {run['stop_step_err_max_m']} m from "
                              f"the ground truth's, not under {PARITY_STOP_STEP_BAR} m")
+        run["bootstrap_frames_jax_cpu"] = list(PARITY_BOOTSTRAPS[family])
+        run["bootstrap_bar"] = list(bootstrap_bar(*PARITY_BOOTSTRAPS[family]))
+        lo, hi = run["bootstrap_bar"]
+        if not lo <= st["bootstrap_frames"] <= hi:
+            fails.append(f"{family}: {st['bootstrap_frames']} bootstrap frames, not in {lo}-{hi} "
+                         f"(the JAX package on the CPU: {PARITY_BOOTSTRAPS[family]})")
         runs[family] = run
         if launches != want:
             fails.append(f"{family}: launch counts {launches} are not {want}")
@@ -1832,6 +1872,131 @@ def phase_parity(paths: dict, tmp: str, smi: str) -> dict:
     emit(line)
     if fails:
         raise AssertionError(f"parity: {fails}")
+    return line
+
+
+# --------------------------------------------------------------------------
+# phase 16: XLA's fused multiply-add in the eliminations, the card against the CPU
+# --------------------------------------------------------------------------
+
+
+def _rodrigues(aa: np.ndarray) -> np.ndarray:
+    th = np.linalg.norm(aa)
+    k = aa / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def contraction_inputs() -> dict:
+    """tests/test_torch_contraction.py's seeded systems, built on the CPU:
+    the PnP polish's 20 normal equations (J^T J + 1e-6 I, entries near 1e8),
+    the 128 ridged DLT Gram matrices of one full-size PnP call (512 slots,
+    KITTI's focal length), and one full-size bootstrap's 64 constraint-row
+    systems with their polynomials, the root grid and points within 8 ulps
+    of each root."""
+    rng = np.random.default_rng(0)
+    polish = []
+    for _ in range(20):
+        Jm = rng.normal(size=(600, 6)) * [800, 1300, 630, 66, 66, 30]
+        Jm[:, 1] += 0.9 * Jm[:, 3] * 1300 / 66
+        polish.append(((Jm.T @ Jm + 1e-6 * np.eye(6)).astype(np.float32),
+                       (Jm.T @ rng.normal(size=600)).astype(np.float32)))
+    K = synthetic.KITTI_K.astype(np.float32)
+    X = np.stack([rng.uniform(-15, 15, N_FEAT), rng.uniform(-2, 3, N_FEAT), rng.uniform(4, 50, N_FEAT)], -1)
+    t = np.array([0.0, 0.0, -1.0])
+    Xc = X @ _rodrigues(np.array([0.002, 0.01, 0.002])).T + t
+    xn = Xc[:, :2] / Xc[:, 2:] + rng.normal(0, 0.5 / K[0, 0], (N_FEAT, 2))
+    idx = np.stack([rng.choice(N_FEAT, 6, replace=False) for _ in range(128)])
+    Xs, xs = torch.from_numpy(X[idx].astype(np.float32)), torch.from_numpy(xn[idx].astype(np.float32))
+    Xh = torch.cat([Xs, torch.ones_like(Xs[..., :1])], -1)
+    z = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, z, -xs[..., 0:1] * Xh], -1), torch.cat([z, Xh, -xs[..., 1:2] * Xh], -1)], -2)
+    M = A.transpose(-1, -2) @ A
+    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+    grams = M + (1e-7 * tr / 12.0 + 1e-12)[:, None, None] * torch.eye(12)
+    X1 = np.stack([rng.uniform(-20, 20, N_FEAT), rng.uniform(-3, 3, N_FEAT), rng.uniform(5, 60, N_FEAT)], -1)
+    X2 = X1 @ _rodrigues(np.array([0.004, -0.008, 0.003])).T + np.array([0.02, -0.01, -1.0])
+    x1, x2 = (X[:, :2] / X[:, 2:3] + rng.normal(0, 0.3 / K[0, 0], (N_FEAT, 2)) for X in (X1, X2))
+    sel = torch.from_numpy(np.stack([rng.choice(N_FEAT, 5, replace=False) for _ in range(64)]))
+    x1, x2 = (torch.from_numpy(x.astype(np.float32))[sel] for x in (x1, x2))
+    rows = five_point._constraint_rows(five_point.nullspace_basis(x1, x2))
+    p, _ = five_point._poly_from_rows(five_point._gauss_jordan10(rows))
+    roots, ok = five_point._real_roots(p)
+    near = roots[:, :, None].view(torch.int32) + torch.sign(roots).to(torch.int32)[:, :, None] * torch.arange(-8, 9, dtype=torch.int32)
+    near = torch.where(ok[:, :, None], near.view(torch.float32), 0.0).reshape(len(p), -1)
+    grid = torch.from_numpy(five_point._root_grid(256))[None].expand(len(p), -1)
+    return {"polish": polish, "grams": grams, "rows": rows, "poly": p, "z": torch.cat([grid, near], 1)}
+
+
+def phase_contraction() -> dict:
+    """The port's eliminations on the card against the same calls on the CPU,
+    bit for bit: ``gj_solve`` (one rounding a step), ``gj_inverse`` (the
+    DLT's), ``_gauss_jordan10`` (two roundings) and ``_peval`` (one), on
+    :func:`contraction_inputs`; and how often the polish-scale solve misses
+    float64 by more than 1 %, as the JAX package's compiled solve does on
+    every system."""
+    t0 = time.perf_counter()
+    inp = contraction_inputs()
+    equal = {"gj_solve": 0, "gj_inverse": 0, "_gauss_jordan10": 0, "_peval": 0}
+    misses = 0
+    for H, g in inp["polish"]:
+        cpu = linalg.gj_solve(torch.from_numpy(H), torch.from_numpy(g)[:, None])
+        card = linalg.gj_solve(torch.from_numpy(H).to(DEV), torch.from_numpy(g)[:, None].to(DEV)).cpu()
+        equal["gj_solve"] += torch.equal(cpu, card)
+        want = np.linalg.solve(H.astype(np.float64), g.astype(np.float64))
+        misses += bool(np.abs(card[:, 0].numpy().astype(np.float64) - want).max() > 1e-2 * np.abs(want).max())
+    pairs = {
+        "gj_inverse": (linalg.gj_inverse, (inp["grams"],)),
+        "_gauss_jordan10": (five_point._gauss_jordan10, (inp["rows"],)),
+        "_peval": (five_point._peval, (inp["poly"], inp["z"])),
+    }
+    for name, (fn, args) in pairs.items():
+        cpu, card = fn(*args), fn(*(a.to(DEV) for a in args)).cpu()
+        equal[name] = int(sum(torch.equal(a, b) for a, b in zip(cpu, card)))
+    n = {"gj_solve": len(inp["polish"]), "gj_inverse": len(inp["grams"]),
+         "_gauss_jordan10": len(inp["rows"]), "_peval": len(inp["poly"])}
+    line = {"phase": "contraction", "bit_equal_to_cpu": equal, "systems": n,
+            "gj_solve_f64_misses": misses, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if equal != n:
+        raise AssertionError(f"contraction: the card differs from the CPU: {equal} of {n}")
+    return line
+
+
+# --------------------------------------------------------------------------
+# phase 17: scaling_bench's small multi_seq leg
+# --------------------------------------------------------------------------
+
+SCALING_CHUNKS = 3  # chunks of 4 frames, as scripts/scaling_bench.py's leg
+
+
+def phase_scaling() -> dict:
+    """``python -m pmv_tpu_torch.scaling_bench``'s ``multi_seq`` leg at its
+    size (96x160, 128 slots) for B = 1 and 2, launches counted from the
+    states' seeding on: every row finite, and sequence 0's poses at B = 2
+    equal to its poses at B = 1 bit for bit."""
+    t0 = time.perf_counter()
+    C = scaling_bench.SMALL["C"]
+    reset_counts()
+    rows, finals = [], {}
+    for B in (1, 2):
+        state, imgs, K, cfg = scaling_bench.small_states(B, DEV, frames=SCALING_CHUNKS * C)
+        step = multi_seq.make_batched_chunk_step(None, cfg, device=DEV)
+        finals[B], sec = scaling_bench.run_batch(step, state, torch.from_numpy(imgs).to(DEV), K, C, DEV)
+        rows.append({"dp": B, "frames_per_sec": B * imgs.shape[1] / sec, "sec": sec,
+                     "poses_finite": bool(torch.isfinite(finals[B].t_hist).all()
+                                          and torch.isfinite(finals[B].R_hist).all())})
+    torch.cuda.synchronize()
+    launches = counts()
+    same = bool(torch.equal(finals[1].t_hist[0], finals[2].t_hist[0])
+                and torch.equal(finals[1].R_hist[0], finals[2].R_hist[0]))
+    line = {"phase": "scaling", "rows": rows, "sequence_0_same_at_B1_and_B2": same,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not all(r["poses_finite"] for r in rows) or not same:
+        raise AssertionError(f"scaling: {line}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"scaling: a kernel was not launched: {launches}")
     return line
 
 
@@ -1860,6 +2025,7 @@ def main() -> int:
 
     with torch.no_grad():
         res = phase_kernels()
+        phase_contraction()
         if args.skip_main:
             # no main-path run, so no launch counts: no summary and no verdict
             print(smi, flush=True)
@@ -1893,6 +2059,7 @@ def main() -> int:
             parity = phase_parity(paths, tmp, smi)
             by_path.update({f"parity.{family}": run["launches"] for family, run in parity["runs"].items()})
             by_path["parity"] = {k: sum(run["launches"][k] for run in parity["runs"].values()) for k in WRAPPERS}
+            by_path["scaling"] = phase_scaling()["launches"]
         launches = by_path["main"]
 
     kernels = []

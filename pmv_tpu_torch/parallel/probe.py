@@ -128,31 +128,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _time_rank(rank, n_shards, Ls, iters, repeats, device_type):
-    """One rank of :func:`time_sharded_solve`: best-of-``repeats`` seconds
-    of one solve, each started after a barrier."""
-    mesh = make_mesh(dp=1, lm=n_shards, device_type=device_type)
-    solver = dist_ba.make_distributed_ba(mesh, iters=iters)
-    args = [a.to(mesh.device) for a in weak_ba_args(n_shards, Ls=Ls)]
+def best_seconds(solver, args, device: torch.device, repeats: int) -> float:
+    """Best-of-``repeats`` seconds of ``solver(*args)`` on this rank, after
+    one untimed call, each call started after a barrier of the group."""
     solver(*args)
-    _sync(mesh.device)
+    _sync(device)
     best = float("inf")
     for _ in range(repeats):
         dist.barrier()
         t0 = time.perf_counter()
         solver(*args)
-        _sync(mesh.device)
+        _sync(device)
         best = min(best, time.perf_counter() - t0)
     return best
 
 
+def _time_rank(rank, n_shards, Ls, iters, repeats, device_type):
+    """One rank of :func:`time_sharded_solve`."""
+    mesh = make_mesh(dp=1, lm=n_shards, device_type=device_type)
+    solver = dist_ba.make_distributed_ba(mesh, iters=iters)
+    args = [a.to(mesh.device) for a in weak_ba_args(n_shards, Ls=Ls)]
+    return best_seconds(solver, args, mesh.device, repeats)
+
+
 def time_sharded_solve(n_shards: int, Ls: int, iters: int, repeats: int = 5,
-                       device_type=None) -> float:
+                       device_type=None, backend: str | None = None) -> float:
     """Best-of-N seconds (rank 0's) for one ``iters``-iteration solve on an
     ``n_shards``-rank lm mesh started by ``launch`` on ``device_type``
-    (``None``: the cards, over NCCL; ``"cpu"``: gloo)."""
+    (``None``: the cards, over NCCL; ``"cpu"``: gloo). ``backend="gloo"``
+    lets ranks share a card (NCCL refuses two ranks on one card)."""
     kind = resolve_device(device_type).type
-    return launch(_time_rank, n_shards, device_type=kind,
+    return launch(_time_rank, n_shards, backend=backend, device_type=kind,
                   args=(n_shards, Ls, iters, repeats, kind))[0]
 
 

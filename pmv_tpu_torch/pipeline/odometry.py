@@ -47,6 +47,51 @@ from pmv_tpu_torch.utils import checkpoint
 from pmv_tpu_torch.utils.profiling import Stopwatch
 
 
+def ba_cadence(cfg: VOConfig) -> int:
+    """Frames between BA calls: ``ba_cadence``, or bundle_size // 3 * 2 at 0."""
+    return cfg.ba_cadence if cfg.ba_cadence > 0 else max(1, cfg.bundle_size // 3 * 2)
+
+
+def step_config(cfg: VOConfig, img_shape) -> fused.StepConfig:
+    """The per-frame step's static configuration of ``cfg`` for frames of
+    ``img_shape`` (H, W)."""
+    n_tiles = math.ceil(img_shape[0] / cfg.grid_rows) * math.ceil(img_shape[1] / cfg.grid_cols)
+    preset = cfg.extractor_preset()
+    return fused.StepConfig(
+        lk_levels=cfg.lk_levels,
+        lk_window=cfg.lk_window,
+        lk_iters=cfg.lk_iters,
+        lk_search=cfg.lk_search,
+        tile_h=cfg.grid_rows,
+        tile_w=cfg.grid_cols,
+        n_per_tile=max(1, math.ceil(cfg.min_tracked_features / n_tiles)),
+        quality=preset["quality"],
+        min_distance=preset["min_distance"],
+        response=preset["response"],
+        essential_solver=cfg.essential_solver,
+        tracked_tol=cfg.tracked_features_tol,
+        e_hypos=cfg.ransac_e_hypos,
+        e_thresh=cfg.ransac_e_thresh,
+        pnp_hypos=cfg.ransac_pnp_hypos,
+        pnp_thresh=cfg.ransac_pnp_thresh,
+        lk_impl=cfg.lk_impl,
+        matcher=cfg.matcher,
+        knn_cand_per_tile=1000 // n_tiles + 1,
+        reseed_tol=cfg.reseed_tol,
+        bundle_size=max(cfg.bundle_size, 1),
+        ba_iters=cfg.max_iterations,
+        ba_cadence=cfg.ba_cadence,
+        ba_obs_gate_px=cfg.ba_obs_gate_px,
+        ba_lm_cap=cfg.ba_lm_cap,
+        cont_tri=bool(cfg.cont_tri),
+        cont_tri_reproj_px=cfg.cont_tri_reproj_px,
+        cont_tri_min_depth=cfg.cont_tri_min_depth,
+        cont_tri_max_depth=cfg.cont_tri_max_depth,
+        traj_cap=cfg.traj_cap,
+        map_hist_rows=cfg.traj_cap // ba_cadence(cfg) + 2 if cfg.map_hist else 0,
+    )
+
+
 class OdometryPipeline:
     def __init__(self, cfg: VOConfig | str | Path, device=None):
         """``device=None`` means the GPU and raises when there is none; pass
@@ -80,9 +125,7 @@ class OdometryPipeline:
         self._gen.manual_seed(cfg.seed)
         self._ba_calls = 0  # actual BA invocations this run
         self.ba_overflow = 0  # BA windows of run() that saturated ba_lm_cap
-        self._ba_cadence = (
-            cfg.ba_cadence if cfg.ba_cadence > 0 else max(1, cfg.bundle_size // 3 * 2)
-        )
+        self._ba_cadence = ba_cadence(cfg)
         self._prev_pyr = None  # the modular loop's previous pyramid
         # tick/tock stack of the run time and the verbose stage times
         self._watch = Stopwatch(self.device)
@@ -396,43 +439,7 @@ class OdometryPipeline:
                 f"frames={cfg.frames} exceeds traj_cap={cfg.traj_cap} - 2; "
                 "raise traj_cap explicitly"
             )
-        n_tiles = self._n_tiles(img_shape)
-        preset = cfg.extractor_preset()
-        return fused.StepConfig(
-            lk_levels=cfg.lk_levels,
-            lk_window=cfg.lk_window,
-            lk_iters=cfg.lk_iters,
-            lk_search=cfg.lk_search,
-            tile_h=cfg.grid_rows,
-            tile_w=cfg.grid_cols,
-            n_per_tile=max(1, math.ceil(cfg.min_tracked_features / n_tiles)),
-            quality=preset["quality"],
-            min_distance=preset["min_distance"],
-            response=preset["response"],
-            essential_solver=cfg.essential_solver,
-            tracked_tol=cfg.tracked_features_tol,
-            e_hypos=cfg.ransac_e_hypos,
-            e_thresh=cfg.ransac_e_thresh,
-            pnp_hypos=cfg.ransac_pnp_hypos,
-            pnp_thresh=cfg.ransac_pnp_thresh,
-            lk_impl=cfg.lk_impl,
-            matcher=cfg.matcher,
-            knn_cand_per_tile=1000 // n_tiles + 1,
-            reseed_tol=cfg.reseed_tol,
-            bundle_size=max(cfg.bundle_size, 1),
-            ba_iters=cfg.max_iterations,
-            ba_cadence=cfg.ba_cadence,
-            ba_obs_gate_px=cfg.ba_obs_gate_px,
-            ba_lm_cap=cfg.ba_lm_cap,
-            cont_tri=bool(cfg.cont_tri),
-            cont_tri_reproj_px=cfg.cont_tri_reproj_px,
-            cont_tri_min_depth=cfg.cont_tri_min_depth,
-            cont_tri_max_depth=cfg.cont_tri_max_depth,
-            traj_cap=cfg.traj_cap,
-            map_hist_rows=(
-                cfg.traj_cap // self._ba_cadence + 2 if cfg.map_hist else 0
-            ),
-        )
+        return step_config(cfg, img_shape)
 
     def _upload(self, frames: list[np.ndarray]) -> torch.Tensor:
         """One chunk of frames to the device as uint8 (4x less transfer than

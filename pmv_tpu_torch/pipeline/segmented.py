@@ -63,6 +63,26 @@ def segment_generators(seed: int, segments: int, device) -> list[torch.Generator
     return gens
 
 
+def seed_state(img: np.ndarray, cfg, step_cfg: fused.StepConfig, device) -> fused.StepState:
+    """A sequence's fresh state at ``img`` on ``device``: grid corners, the
+    top ``cfg.feature_capacity`` of them, an empty map, captured blocks."""
+    dimg = torch.as_tensor(img, dtype=torch.float32).to(device)
+    xy, sc, va = grid_extract(
+        dimg, step_cfg.n_per_tile, tile_h=cfg.grid_rows, tile_w=cfg.grid_cols,
+        quality=step_cfg.quality, min_distance=step_cfg.min_distance,
+        response=step_cfg.response,
+    )
+    txy, tsc, tva = select_top(xy, sc, va, cfg.feature_capacity)
+    table = FeatureTable(
+        xy=txy, valid=tva, score=tsc,
+        landmark=torch.full((cfg.feature_capacity,), -1, dtype=torch.int32, device=device),
+    )
+    return fused.init_state(
+        pyr=build_pyramid(dimg, cfg.lk_levels), table=table,
+        map_state=MapState.empty(cfg.map_capacity, device=device), cfg=step_cfg,
+    )
+
+
 class SegmentedPipeline(OdometryPipeline):
     """:class:`OdometryPipeline` processing B segments side by side.
 
@@ -109,26 +129,6 @@ class SegmentedPipeline(OdometryPipeline):
             traj_cap=cfg.traj_cap,
         )
 
-    def _seed_state(self, img: np.ndarray, step_cfg: fused.StepConfig) -> fused.StepState:
-        """A segment's fresh state at its first frame: grid corners, the top
-        ``feature_capacity`` of them, an empty map, captured blocks."""
-        cfg = self.cfg
-        dimg = torch.as_tensor(img, dtype=torch.float32).to(self.device)
-        xy, sc, va = grid_extract(
-            dimg, step_cfg.n_per_tile, tile_h=cfg.grid_rows, tile_w=cfg.grid_cols,
-            quality=step_cfg.quality, min_distance=step_cfg.min_distance,
-            response=step_cfg.response,
-        )
-        txy, tsc, tva = select_top(xy, sc, va, cfg.feature_capacity)
-        table = FeatureTable(
-            xy=txy, valid=tva, score=tsc,
-            landmark=torch.full((cfg.feature_capacity,), -1, dtype=torch.int32, device=self.device),
-        )
-        return fused.init_state(
-            pyr=build_pyramid(dimg, cfg.lk_levels), table=table,
-            map_state=MapState.empty(cfg.map_capacity, device=self.device), cfg=step_cfg,
-        )
-
     @torch.no_grad()
     def seed_segments(self) -> SimpleNamespace:
         """Everything :meth:`run` does before its first step: the init frame
@@ -167,7 +167,7 @@ class SegmentedPipeline(OdometryPipeline):
         states = []
         for s in seg_starts:
             (_, img), = FramePrefetcher([self.file_names[s]])
-            states.append(self._seed_state(img, step_cfg))
+            states.append(seed_state(img, self.cfg, step_cfg, self.device))
 
         gt_steps = np.zeros((B, L), np.float32)
         for b, s in enumerate(seg_starts):

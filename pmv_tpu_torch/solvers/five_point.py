@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from pmv_tpu_torch.core import linalg
 from pmv_tpu_torch.solvers.essential import (
     normalize_points,
     refit_essential,
@@ -184,7 +185,9 @@ def _constraint_rows(Eb: Tensor) -> Tensor:
 
 def _gauss_jordan10(A: Tensor) -> Tensor:
     """Reduce the (H, 10, 20) systems so the left 10x10 blocks become
-    identity (partial pivoting, fixed 10 steps)."""
+    identity (partial pivoting, fixed 10 steps). Each step rounds twice,
+    where the JAX package's compiled reduction rounds once (ROADMAP Queue 3:
+    an open difference, tests/test_torch_contraction.py)."""
     H = A.shape[0]
     ar = torch.arange(H, device=A.device)
     idx = torch.arange(10, device=A.device)
@@ -266,10 +269,11 @@ def _poly_from_rows(A: Tensor):
 
 
 def _peval(p: Tensor, z: Tensor) -> Tensor:
-    """Horner evaluation of (H, d+1) ascending coefficients at z (H, G)."""
+    """Horner evaluation of (H, d+1) ascending coefficients at z (H, G), one
+    rounding a step as the JAX package's compiled Horner loop."""
     out = torch.zeros_like(z)
     for i in range(p.shape[-1] - 1, -1, -1):
-        out = out * z + p[:, i : i + 1]
+        out = linalg.fma(out, z, p[:, i : i + 1])
     return out
 
 

@@ -20,7 +20,12 @@ between a sharded and a one-device solve. JAX runs as the tests run it:
 64-bit enabled.
 
 With ``--card``, on one GPU: chip_smoke.py's main run (its ``phase_main``,
-``--frames`` frames of the 370x1226 corridor) as its ``mesh`` phase takes
+``--frames`` frames of the 370x1226 corridor), first as its ``refine``
+phase takes it (drifted, refined on the card and on the CPU): the card's
+refinement against the CPU's, against itself with the drifted poses scaled
+by 1 + e (e = +-1e-6, ..., +-4e-6), and with each fault of ``ONE_FAULTS``
+against the sound one; with ``--save DIR`` the run is written to
+``DIR/main_run.npz`` for ``--reference``. Then as its ``mesh`` phase takes
 it (``MainRun``: clean and drifted, the map slots spread over the landmark
 shards, refined on one device on the card), then refined on a (2, 2) mesh
 of 4 gloo ranks sharing the card, as that phase refines it: once sound, and
@@ -30,6 +35,10 @@ changed). With ``--unspread`` the map slots stay as the run left them.
 Each line gives the largest difference of R and t from the one-device
 result, whether the 4 ranks agree bit for bit, and the rebased ATE before
 and after.
+
+With ``--reference DIR`` (CPU, JAX): ``pmv_tpu``'s one-device refinement of
+that saved run, drifted, against itself with the poses scaled as above,
+and the port's refinement on the CPU against it.
 
 Prints one JSON line per measurement (on the card, with the card's name and
 power limit from ``nvidia-smi``).
@@ -66,6 +75,20 @@ REFINE = dict(window=8, overlap=4, iters=8)
 #   first rank: every rank steps on shard 0's blocks alone, so the ranks
 #   agree and half the landmarks are lost.
 FAULTS = ("cost_unreduced", "blocks_unreduced", "shard_lost")
+# Faults of the one-device refinement, the settings it is run with changed:
+# one and two LM iterations fewer.
+ONE_FAULTS = {"one_iteration_fewer": dict(iters=7), "two_iterations_fewer": dict(iters=6)}
+# The scalings of the drifted poses that measure a refinement's sensitivity
+SCALES = [(-1) ** j * (j // 2 + 1) * 1e-6 for j in range(8)]
+
+
+def gap(a, b) -> float:
+    """The largest difference of R or t between two (R, t) pairs."""
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def scaled(run: dict, e: float) -> dict:
+    return dict(run, t=(run["t"] * (1 + e)).astype(run["t"].dtype))
 
 
 def port_rank(rank: int, run: dict):
@@ -117,9 +140,41 @@ def card_rank(rank: int, tmp: str, refine: dict, refine_lm: int, fault: str | No
     return out
 
 
-def card(frames: int, spread: bool) -> int:
-    """The sound and the faulty (2, 2) refinements of chip_smoke.py's main
-    run against its one-device refinement, on the card."""
+def one_device(smi: str, frames: int, run: dict) -> None:
+    """chip_smoke.py's ``refine`` phase's comparison on the drifted main run:
+    the card against the CPU, the card's sensitivity, its planted faults."""
+    def refine(r, dev, **kw):
+        R, t = global_refine.global_bundle_adjust(convert.run_from_reference(r, dev), None, device=dev,
+                                                  **{**REFINE, **kw})
+        return np.stack(R), np.stack(t)
+
+    card = refine(run, "cuda")
+    row = {"card": smi, "frames": frames, "form": "drifted", "refine": "one device"}
+    print(json.dumps({**row, "sound": "card_vs_cpu", "max_abs": gap(card, refine(run, "cpu"))}), flush=True)
+    for e in SCALES:
+        print(json.dumps({**row, "sound": f"card_vs_card_poses_scaled_{e:+.0e}",
+                          "max_abs": gap(card, refine(scaled(run, e), "cuda"))}), flush=True)
+    for fault, kw in ONE_FAULTS.items():
+        print(json.dumps({**row, "fault": fault, "max_abs_vs_sound": gap(card, refine(run, "cuda", **kw))}),
+              flush=True)
+
+
+def drifted_run(pipe) -> dict:
+    """``pipe``'s run as numpy with chip_smoke.py's drift, as its ``refine``
+    phase drifts it (the map slots as the run left them)."""
+    import chip_smoke as smoke
+
+    run = convert.run_to_numpy(pipe)
+    holder = type("Run", (), {})()
+    holder.R, holder.t = list(run["R"]), list(run["t"])
+    smoke.inject_drift(holder)
+    return dict(run, R=np.stack(holder.R), t=np.stack(holder.t))
+
+
+def card(frames: int, spread: bool, save: str | None) -> int:
+    """The card's refinement of chip_smoke.py's main run against the CPU's,
+    its sensitivity and faults; then the sound and the faulty (2, 2)
+    refinements of that run against its one-device refinement, on the card."""
     import chip_smoke as smoke  # exits without a card
 
     from pmv_tpu_torch import build
@@ -130,6 +185,10 @@ def card(frames: int, spread: bool) -> int:
     with torch.no_grad(), tempfile.TemporaryDirectory(prefix="pmv_gap_") as tmp:
         paths = smoke.write_corridor(tmp, frames)
         _, pipe = smoke.phase_main(paths, tmp, frames, 0.0)
+        if save:
+            Path(save).mkdir(parents=True, exist_ok=True)
+            np.savez(Path(save) / "main_run.npz", **convert.run_to_numpy(pipe))
+        one_device(smi, frames, drifted_run(pipe))
         if not spread:
             smoke.spread_landmarks = lambda run, n: run
         main = smoke.MainRun(pipe)
@@ -161,9 +220,11 @@ def main() -> int:
     ap.add_argument("--card", action="store_true", help="the sound and faulty refinements on a GPU")
     ap.add_argument("--frames", type=int, default=45, help="frames of the main run (--card)")
     ap.add_argument("--unspread", action="store_true", help="keep the run's map slots (--card)")
+    ap.add_argument("--save", help="write the main run here (--card)")
+    ap.add_argument("--reference", help="a directory --save wrote: pmv_tpu's refinement of its run (CPU)")
     args = ap.parse_args()
     if args.card:
-        return card(args.frames, not args.unspread)
+        return card(args.frames, not args.unspread, args.save)
     torch.set_num_threads(1)
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                " --xla_force_host_platform_device_count=4").strip()
@@ -187,8 +248,25 @@ def main() -> int:
         R, t = j_refine.global_bundle_adjust(pipe, m, **REFINE)
         return np.stack(R), np.stack(t)
 
-    def gap(a, b) -> float:
-        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    if args.reference:
+        with np.load(Path(args.reference) / "main_run.npz") as z:
+            clean = dict(z)
+        holder = type("Run", (), {})()
+        holder.R, holder.t = list(clean["R"]), list(clean["t"])
+        sys.path.insert(0, str(ROOT / "tests"))
+        from test_parallel_flow import TestGlobalRefine  # chip_smoke.inject_drift's drift
+
+        TestGlobalRefine._inject_drift(holder)
+        run = dict(clean, R=np.stack(holder.R), t=np.stack(holder.t))
+        ref = jax_refine(run, 1, 1)
+        R, t = global_refine.global_bundle_adjust(convert.run_from_reference(run, "cpu"), None,
+                                                  device="cpu", **REFINE)
+        row = {"run": args.reference, "form": "drifted"}
+        print(json.dumps({**row, "port_cpu_vs_jax_1x1": gap((np.stack(R), np.stack(t)), ref)}), flush=True)
+        for e in SCALES:
+            print(json.dumps({**row, "sound": f"jax_vs_jax_poses_scaled_{e:+.0e}",
+                              "max_abs": gap(jax_refine(scaled(run, e), 1, 1), ref)}), flush=True)
+        return 0
 
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_mesh import make_finished, make_windows

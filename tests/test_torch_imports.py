@@ -58,7 +58,7 @@ def test_port_has_the_expected_modules():
         "pmv_tpu_torch.parallel.dist_ba", "pmv_tpu_torch.parallel.global_refine",
         "pmv_tpu_torch.parallel.multi_seq", "pmv_tpu_torch.pipeline.segmented",
         "pmv_tpu_torch.parallel.mesh", "pmv_tpu_torch.parallel.probe", "pmv_tpu_torch.bench",
-        "pmv_tpu_torch.parity_sweep", "pmv_tpu_torch.diag",
+        "pmv_tpu_torch.parity_sweep", "pmv_tpu_torch.diag", "pmv_tpu_torch.scaling_bench",
     ):
         assert name in MODULES
 

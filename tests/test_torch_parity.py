@@ -363,16 +363,18 @@ def test_gj_solve_leaves_the_pivot_rows_residual_in_both_packages():
     """A fact of the reference that the sweep surfaced (ROADMAP Queue 3),
     held as it is. ``gj_solve`` eliminates column i from every row, the pivot
     row included, and then adds the normalized pivot row back: the pivot row
-    is taken to zero itself, but in float32 x - p * (x / p) is often one ulp
-    of x, and with entries near 1e8 that ulp outweighs the normalized row.
-    On normal equations at the scale of the full-size PnP polish (J^T J + 1e-6
-    I over 300 landmarks, KITTI's focal length; condition number 3e3-4e3)
-    the JAX package's solve (jit, CPU) misses float64 by more than 1 % on
-    nearly every system and the port's, which mirrors it, on most; the same
-    elimination with the pivot row written in place does not. The JAX
-    package's PnP polish therefore fails on most frames of a full-size run
-    and is rejected, which the port's does less often: the port bootstraps
-    fewer frames (PERF.md, section 5)."""
+    is taken to zero itself, but x - p * (x / p) leaves a residual, and with
+    entries near 1e8 that residual outweighs the normalized row. XLA computes
+    the elimination as one fused multiply-add, which leaves the full residual
+    on nearly every row; the port computes it the same way
+    (``core.linalg.fma``). On normal equations at the scale of the full-size
+    PnP polish (J^T J + 1e-6 I over 300 landmarks, KITTI's focal length;
+    condition number 3e3-4e3) the port's solve equals the JAX package's
+    (jit, CPU) bit for bit on all 20 systems, and both miss float64 by more
+    than 1 % on every one; the same elimination with the pivot row written
+    in place does not. The PnP polish therefore fails on most frames of a
+    full-size run, in both packages, and is rejected
+    (tests/test_torch_contraction.py)."""
     import jax
     import jax.numpy as jnp
 
@@ -390,6 +392,7 @@ def test_gj_solve_leaves_the_pivot_rows_residual_in_both_packages():
 
     rng = np.random.default_rng(0)
     misses = {"port": 0, "jax": 0, "in_place": 0}
+    equal = 0
     j_solve = jax.jit(j_gj_solve)
     for _ in range(20):
         J = rng.normal(size=(600, 6)) * [800, 1300, 630, 66, 66, 30]  # rotation and translation columns
@@ -401,6 +404,8 @@ def test_gj_solve_leaves_the_pivot_rows_residual_in_both_packages():
         got = {"port": gj_solve(T(H), T(g)[:, None]).numpy(),
                "jax": np.asarray(j_solve(jnp.asarray(H), jnp.asarray(g)[:, None])),
                "in_place": in_place(T(H), T(g)[:, None]).numpy()}
+        equal += np.array_equal(got["port"].view(np.uint32), got["jax"].view(np.uint32))
         for k, x in got.items():
             misses[k] += bool(np.abs(x[:, 0].astype(np.float64) - want).max() > 1e-2 * np.abs(want).max())
-    assert misses["jax"] >= 18 and misses["port"] >= 10 and misses["in_place"] == 0, misses
+    assert equal == 20, equal
+    assert misses["jax"] == misses["port"] == 20 and misses["in_place"] == 0, misses

@@ -348,6 +348,31 @@ def _to_f64_torch(x):
     return x
 
 
+def jax_f32_ba_costs(state, K, jcfg, monkeypatch, n: int = 16) -> list[float]:
+    """The JAX package's float32 ``ba_step`` under ``jit`` from ``state``
+    and from ``state`` with its map scaled by 1 + e, e = +-1e-6, +-2e-6, ...
+    (``n`` of them): the solver's final robust cost of each, read by a
+    callback that leaves the computation as it is (the state it returns is
+    ``ba_step``'s bit for bit)."""
+    costs = []
+    solve = j_fused.schur_lm.ba_solve_grid
+
+    def recording(*args, **kw):
+        out = solve(*args, **kw)
+        jax.debug.callback(lambda c: costs.append(float(c)), out[2]["cost"])
+        return out
+
+    monkeypatch.setattr(j_fused.schur_lm, "ba_solve_grid", recording)
+    step = jax.jit(lambda s, K: j_fused.ba_step.__wrapped__(s, K, jcfg))
+    for j in range(n + 1):
+        e = 0.0 if j == 0 else (-1) ** j * ((j + 1) // 2) * 1e-6
+        jax.block_until_ready(step(state._replace(map=state.map._replace(xyz=state.map.xyz * (1 + e))), K))
+    jax.effects_barrier()
+    monkeypatch.setattr(j_fused.schur_lm, "ba_solve_grid", solve)
+    assert len(costs) == n + 1
+    return costs
+
+
 class TestBAStep:
     def test_ba_step_on_the_same_state(self, jax_run, monkeypatch):
         """Window poses and landmarks after ba_step from the same state.
@@ -360,9 +385,15 @@ class TestBAStep:
         assembly, unique-landmark compaction, solve, scatter back — is
         therefore held in float64, where the two agree to rounding (1e-7).
         In float32 the bar is the cost: the same initial robust cost as the
-        float64 solve (1e-4), the same cost after the three iterations within
-        2 % (they are not converged, and the paths differ), poses only
-        within 0.25."""
+        float64 solve (1e-4), the cost after the three iterations within 2 %
+        of the float64 solve's (they are not converged, and the paths
+        differ) or within the range of the JAX package's own float32 step
+        where that is wider (:func:`jax_f32_ba_costs`), poses only within
+        0.25. The reduced system keeps the pivot row's residual as XLA
+        computes it (tests/test_torch_contraction.py), so the float32 loop's
+        cost hangs on its inputs' last bits: on the last window the JAX
+        package's lands 4.86 to 7.98 for a map scaled by 1 + e, |e| <= 8e-6,
+        against the float64 loop's 4.94, and the port's 6.00."""
         K = T(jax_run["K"])
         cfg = fused.StepConfig(**CFG)
         jcfg = j_fused.StepConfig(lk_impl="tap", **CFG)
@@ -394,7 +425,10 @@ class TestBAStep:
             assert out.t_hist.dtype == torch.float32
             st64, st32 = solver_stats[-2:]
             np.testing.assert_allclose(float(st32["cost0"]), float(st64["cost0"]), rtol=1e-4)
-            np.testing.assert_allclose(float(st32["cost"]), float(st64["cost"]), rtol=2e-2)
+            jax_costs = jax_f32_ba_costs(rec["before"], J(jax_run["K"]), jcfg, monkeypatch)
+            lo = min(jax_costs + [float(st64["cost"]) * (1 - 2e-2)])
+            hi = max(jax_costs + [float(st64["cost"]) * (1 + 2e-2)])
+            assert lo <= float(st32["cost"]) <= hi, (float(st32["cost"]), lo, hi)
             assert float(st32["cost"]) < float(st32["cost0"])
             np.testing.assert_allclose(out.t_hist[: k + 1].numpy(), np.asarray(ref.t_hist)[: k + 1], atol=0.25)
             np.testing.assert_allclose(out.R_hist[: k + 1].numpy(), np.asarray(ref.R_hist)[: k + 1], atol=5e-2)

@@ -346,14 +346,30 @@ class TestPnP:
     def test_ransac_with_injected_samples(self, noise, n_out):
         """Same 6-point sets on both sides: inlier masks equal on >= 99 %;
         both poses near the truth and near each other (rotation 5e-3 rad, t
-        2e-2: the JAX package's float32 polish jitters by a few 1e-3 rad from
-        one iteration to the next on this data — measured — and the 6-point
-        hypotheses are only hypothesis-grade, so the two sides can crown
-        different winners and polish on different subsets); and the port's
-        pose explains the common inliers at least as well as the JAX one
-        (RMS reprojection error). The tight parity of the polish itself is
-        test_gauss_newton_refine."""
-        tv = make_two_view(12, n=200, n_outliers=n_out, noise=noise)
+        2e-2: the 6-point hypotheses are only hypothesis-grade, so the two
+        sides can crown different winners and polish on different subsets);
+        and the port's pose explains the common inliers at least as well as
+        the JAX one (RMS reprojection error at most 1.05x + 0.01 px). On the
+        low-noise case that comparison is made on the median over 16 scenes
+        (seeds 12-27): there the polish-scale solve keeps the pivot row's
+        fused residual in both packages (ROADMAP Queue 3,
+        tests/test_torch_contraction.py), so neither Gauss-Newton polish
+        converges, and where on 0.1-1.7 px each scene's polish ends hangs on
+        J^T J's order of sums (scene 12: the port 1.22 px, the JAX package
+        1.08; medians 0.727 and 0.736). Without the polish, or with its step
+        of the wrong sign, the port's median is 0.842. The tight parity of
+        the polish itself is test_gauss_newton_refine."""
+        rms = [self._ransac_with_injected_samples(seed, noise, n_out) for seed in
+               ([12] if noise > 0.1 else range(12, 28))]
+        port, jax_ = np.median(rms, axis=0)
+        assert port <= 1.05 * jax_ + 0.01, rms
+
+    @staticmethod
+    def _ransac_with_injected_samples(seed, noise, n_out):
+        """One scene of test_ransac_with_injected_samples (scene 12's checks
+        on it); returns the (port, JAX) RMS reprojection errors on the
+        common inliers."""
+        tv = make_two_view(seed, n=200, n_outliers=n_out, noise=noise)
         valid = np.ones(200, bool)
         valid[190:] = False
         key = jax.random.PRNGKey(2)
@@ -369,12 +385,13 @@ class TestPnP:
             T(tv["X1"]), T(tv["uv2"]), T(valid), T(K), None, T(Rg), T(tg),
             n_hypos=H, thresh_px=3.0, samples=T(samples),
         )
-        assert (inl.numpy() == np.asarray(jinl)).mean() >= 0.99
-        assert int(inl.sum()) >= 130
-        assert rot_angle(R.numpy(), jR) < 5e-3
-        np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=2e-2)
-        assert rot_angle(R.numpy(), tv["R"]) < 5e-3
-        np.testing.assert_allclose(t.numpy(), tv["t"], atol=2e-2)
+        if seed == 12:
+            assert (inl.numpy() == np.asarray(jinl)).mean() >= 0.99
+            assert int(inl.sum()) >= 130
+            assert rot_angle(R.numpy(), jR) < 5e-3
+            np.testing.assert_allclose(t.numpy(), np.asarray(jt), atol=2e-2)
+            assert rot_angle(R.numpy(), tv["R"]) < 5e-3
+            np.testing.assert_allclose(t.numpy(), tv["t"], atol=2e-2)
         common = inl.numpy() & np.asarray(jinl)
 
         def rms(Rx, tx):
@@ -382,7 +399,7 @@ class TestPnP:
             uv = Xc[:, :2] / Xc[:, 2:] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
             return np.sqrt(((uv - tv["uv2"]) ** 2).sum(1)[common].mean())
 
-        assert rms(R.numpy(), t.numpy()) <= 1.05 * rms(jR, jt) + 0.01
+        return rms(R.numpy(), t.numpy()), rms(jR, jt)
 
     def test_ransac_exact_data(self):
         """Noise-free data: both frameworks recover the true pose (5e-3)."""
