@@ -16,10 +16,13 @@ Phases, each printing one JSON line as it ends:
                (the LK level kernel at every block size built, and its
                template stage on its own);
    contraction — the port's eliminations on the card (``gj_solve`` and
-               ``gj_inverse`` with XLA's one rounding a step, the five-point
-               reduction, Horner with one rounding) against the same calls on
-               the CPU, bit for bit, on tests/test_torch_contraction.py's
-               seeded systems; the polish-scale solve's float64 misses;
+               ``gj_inverse`` with XLA's one rounding a step, Horner with one
+               rounding) against the same calls on the CPU, bit for bit, on
+               tests/test_torch_contraction.py's seeded systems; the
+               polish-scale solve's float64 misses; and the five-point
+               solver's stages (constraint rows, reduction, polynomial,
+               roots, candidates) on 256 systems built as that audit builds
+               them, the card equal to the CPU bit for bit at each;
 4. main path — a synthetic KITTI-sized corridor through
                ``OdometryPipeline(cfg, device="cuda").run()`` at the default
                configuration's full size, with the kernels' launch counts
@@ -82,7 +85,9 @@ Phases, each printing one JSON line as it ends:
                bar, its record; then ``python3 -m pmv_tpu_torch.bench`` as a
                user runs it, once short (one line, exit 0, the card named)
                and once with a budget it cannot meet (one zero record, a
-               non-zero exit, no process left);
+               non-zero exit, no process left); the in-process run's
+               bootstrap frames held to the JAX package's range on the CPU at
+               the same frames, widened by 10 %;
 15. parity   — the accuracy sweep's strict-parity configuration
                (``parity_sweep.PARITY``: LK window 32, search 16, regions of
                84 x 84, PnP 8 px, essential 1 px, reseed coupled at 150) at
@@ -146,7 +151,7 @@ from pmv_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from pmv_tpu_torch.pipeline import fused  # noqa: E402
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline  # noqa: E402
 from pmv_tpu_torch.pipeline.segmented import SegmentedPipeline  # noqa: E402
-from pmv_tpu_torch.solvers import five_point  # noqa: E402
+from pmv_tpu_torch.solvers import essential, five_point  # noqa: E402
 from pmv_tpu_torch.utils import checkpoint, profiling  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1643,6 +1648,11 @@ BENCH_POSES = 298
 # 300; 0.57-1.66 %); 5 % (14.9 m) is 3.0x the worst of them, and the default
 # loop's bar. (At 598 frames: 7.94-13.59 m over 595 m, 1.33-2.28 %.)
 BENCH_ATE_BAR = 0.05
+# Bootstrap frames of that run, held to the JAX package's range on the CPU
+# at this configuration and these frames (scripts/torch_reference_ate.py
+# --path main --frames 300, RANSAC seeds 0-7: 21-26 of 298), widened as
+# bootstrap_bar widens the parity phase's. (At 598 frames: 44-51 of 596.)
+BENCH_BOOTSTRAPS = (21, 26)
 # Seconds a subprocess run of the entry point may take, start-up included
 BENCH_RUN_TIMEOUT = 300
 
@@ -1708,6 +1718,8 @@ def phase_bench(tmp: str, smi: str) -> dict:
         "phase": "bench", "frames_asked": BENCH_FRAMES, "dataset_seconds": data_s,
         "record": rec, "ms_per_frame": result["runtime"] / max(st["tracked_frames"], 1) * 1e3,
         **st, "ba_calls": result["ba_calls"], "ate_bar_share_of_path": BENCH_ATE_BAR,
+        "bootstrap_frames_jax_cpu": list(BENCH_BOOTSTRAPS),
+        "bootstrap_bar": list(bootstrap_bar(*BENCH_BOOTSTRAPS)),
         "peak_device_bytes": peak, "launches": launches, "launches_want": want,
         "entry_point_short": short, "entry_point_cut": cut,
     }
@@ -1726,6 +1738,10 @@ def phase_bench(tmp: str, smi: str) -> dict:
         check_path("bench", st, result, BENCH_ATE_BAR)
     except AssertionError as e:
         fails.append(str(e))
+    lo, hi = line["bootstrap_bar"]
+    if not lo <= st["bootstrap_frames"] <= hi:
+        fails.append(f"{st['bootstrap_frames']} bootstrap frames, not in {lo}-{hi} "
+                     f"(the JAX package on the CPU: {BENCH_BOOTSTRAPS})")
     r = short["record"] or {}
     if not (short["rc"] == 0 and short["lines"] == 1 and r.get("metric") == "vo_frames_per_sec"
             and r.get("value", 0) > 0 and r["detail"].get("device") == smi
@@ -1925,16 +1941,46 @@ def contraction_inputs() -> dict:
     near = roots[:, :, None].view(torch.int32) + torch.sign(roots).to(torch.int32)[:, :, None] * torch.arange(-8, 9, dtype=torch.int32)
     near = torch.where(ok[:, :, None], near.view(torch.float32), 0.0).reshape(len(p), -1)
     grid = torch.from_numpy(five_point._root_grid(256))[None].expand(len(p), -1)
-    return {"polish": polish, "grams": grams, "rows": rows, "poly": p, "z": torch.cat([grid, near], 1)}
+    return {"polish": polish, "grams": grams, "rows": rows, "poly": p, "z": torch.cat([grid, near], 1),
+            "bases": five_point_bases()}
+
+
+def five_point_bases() -> torch.Tensor:
+    """The (256, 4, 3, 3) nullspace bases of tests/test_torch_contraction.py's
+    audit, built as it builds them on the CPU: 4 full-size bootstraps
+    (``two_view`` of seeds 0-3: 512 slots, 80 % tracked, 15 % outliers, 0.3 px
+    of noise, a forward step at KITTI's focal length), 64 five-point samples
+    of tracked slots each (numpy's draws in place of ``jax.random``'s)."""
+    K = synthetic.KITTI_K.astype(np.float32)
+    x1s, x2s = [], []
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        X1 = np.stack([rng.uniform(-20, 20, N_FEAT), rng.uniform(-3, 3, N_FEAT),
+                       rng.uniform(5, 60, N_FEAT)], -1)
+        R = _rodrigues((rng.normal(size=3) * 0.01).astype(np.float32).astype(np.float64))
+        t = np.array([0.02, -0.01, -1.0]) + rng.normal(size=3) * 0.01
+        X2 = X1 @ R.T + t
+        uv1, uv2 = (X[:, :2] / X[:, 2:3] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]] for X in (X1, X2))
+        uv1 = uv1 + rng.normal(0, 0.3, (N_FEAT, 2))
+        uv2 = uv2 + rng.normal(0, 0.3, (N_FEAT, 2))
+        out = rng.random(N_FEAT) < 0.15
+        uv2[out] += rng.uniform(3, 30, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+        valid = np.flatnonzero(rng.random(N_FEAT) < 0.8)
+        sel = torch.from_numpy(np.stack([rng.choice(valid, 5, replace=False) for _ in range(64)]))
+        for uv, xs in ((uv1, x1s), (uv2, x2s)):
+            xs.append(essential.normalize_points(torch.from_numpy(uv.astype(np.float32)),
+                                                 torch.from_numpy(K))[sel])
+    return five_point.nullspace_basis(torch.cat(x1s), torch.cat(x2s))
 
 
 def phase_contraction() -> dict:
     """The port's eliminations on the card against the same calls on the CPU,
     bit for bit: ``gj_solve`` (one rounding a step), ``gj_inverse`` (the
-    DLT's), ``_gauss_jordan10`` (two roundings) and ``_peval`` (one), on
+    DLT's), ``_gauss_jordan10`` and ``_peval`` (one), on
     :func:`contraction_inputs`; and how often the polish-scale solve misses
     float64 by more than 1 %, as the JAX package's compiled solve does on
-    every system."""
+    every system; then the five-point solver's stages and candidates on the
+    audit's 256 bases (:func:`five_point_bases`)."""
     t0 = time.perf_counter()
     inp = contraction_inputs()
     equal = {"gj_solve": 0, "gj_inverse": 0, "_gauss_jordan10": 0, "_peval": 0}
@@ -1955,6 +2001,23 @@ def phase_contraction() -> dict:
         equal[name] = int(sum(torch.equal(a, b) for a, b in zip(cpu, card)))
     n = {"gj_solve": len(inp["polish"]), "gj_inverse": len(inp["grams"]),
          "_gauss_jordan10": len(inp["rows"]), "_peval": len(inp["poly"])}
+    # the five-point solver stage by stage, each stage fed the CPU's output
+    # of the stage before, then chained from the bases
+    Eb = inp["bases"]
+    stages = {"constraint_rows": five_point._constraint_rows, "reduction": five_point._gauss_jordan10,
+              "polynomial": lambda R: five_point._poly_from_rows(R)[0],
+              "roots": lambda p: torch.cat([x.to(p.dtype) for x in five_point._real_roots(p)], 1)}
+    x = Eb
+    for name, fn in stages.items():
+        cpu, card = fn(x), fn(x.to(DEV)).cpu()
+        equal[f"five_point.{name}"] = int(sum(torch.equal(a, b) for a, b in zip(cpu, card)))
+        n[f"five_point.{name}"] = len(Eb)
+        x = cpu
+    cpu = five_point.candidates_from_basis(Eb)
+    card = [v.cpu() for v in five_point.candidates_from_basis(Eb.to(DEV))]
+    equal["five_point.candidates"] = int(sum(all(torch.equal(a[h], b[h]) for a, b in zip(cpu, card))
+                                            for h in range(len(Eb))))
+    n["five_point.candidates"] = len(Eb)
     line = {"phase": "contraction", "bit_equal_to_cpu": equal, "systems": n,
             "gj_solve_f64_misses": misses, "seconds": time.perf_counter() - t0}
     emit(line)

@@ -148,8 +148,15 @@ def _residual_jacobians(tr: Tensor, lm_o: Tensor, obs_uv: Tensor, K: Tensor):
         ],
         dim=-2,
     )  # (P, N, 2, 3)
+    # Forward-mode JAX takes d(q_i / z) as dq_i / z + (-dz * q_i) * z^-2. For a
+    # point about 1e19 or farther the product overflows and z^-2 underflows,
+    # so the JAX package's derivative is NaN (and its step is rejected); the
+    # port's is NaN there too.
+    z_inv2 = (1.0 / (z * z))[..., None]
+    jvp_term = torch.stack([(dq_daa[..., 2, :] * q[..., i, None]) * z_inv2 for i in (0, 1)], dim=-2)
     Jl = -(dpred_dq @ R[:, None])  # dq/dX = dq/d(tr[3:6]) = R
-    Jp = torch.cat([-(dpred_dq @ dq_daa), Jl], dim=-1)
+    J_aa = torch.where(torch.isfinite(jvp_term), -(dpred_dq @ dq_daa), jvp_term)
+    Jp = torch.cat([J_aa, Jl], dim=-1)
     return obs_uv - pred, Jp, Jl
 
 

@@ -9,9 +9,10 @@ minimal solver is Nister's five-point algorithm (OpenCVFivePointTri.cpp:24).
 2. The 10 cubic constraints (det E = 0 and the trace constraint
    ``2 E E^T E - tr(E E^T) E = 0``) are cubic forms in the 36 basis entries.
    Their monomial structure is fixed, so it is expanded ONCE symbolically
-   (a tiny polynomial algebra in pure Python) into a constant matrix; at run
-   time the (H, 10, 20) coefficient matrices of all hypotheses are one
-   gather-multiply and one matrix product.
+   (a tiny polynomial algebra in pure Python), as the JAX package expands it
+   at trace time, into a straight-line program of fused multiply-adds that
+   rounds as XLA's compiled expansion does; at run time the (H, 10, 20)
+   coefficient matrices of all hypotheses are its 10 levels.
 3. Gauss-Jordan elimination (partial pivoting, batched) of the 10
    higher-degree (x,y)-monomials leaves three equations linear in (x, y)
    with polynomial-in-z coefficients; their 3x3 determinant is the classic
@@ -48,47 +49,19 @@ from pmv_tpu_torch.solvers.ransac import sample_minimal_sets
 Tensor = torch.Tensor
 
 # ---------------------------------------------------------------------------
-# One-time symbolic expansion. A polynomial in (x, y, z) is
-# {(a, b, c): coeff}; a coeff is itself a polynomial in the 36 basis entries,
-# {sorted tuple of entry indices: float}.
+# The 10 cubic constraints as XLA compiles the JAX package's expansion.
+#
+# The JAX package expands the constraints at trace time over jnp scalars, and
+# XLA computes each of the 200 coefficients in a fusion of its own. Within a
+# fusion LLVM first puts the operands of every add and multiply in rank order
+# (its Reassociate pass: a read ranks by its place among the reads, an
+# operation one above its higher operand), then contracts each add or
+# subtract with a product used only there into a fused multiply-add, taking
+# its first operand's product when both are. The port replays those rules on
+# the same expansion (scripts/torch_hlo_contractions.py prints the fusions
+# and their fused multiply-adds) and evaluates the result as one
+# straight-line program of fused multiply-adds.
 # ---------------------------------------------------------------------------
-
-
-def _cmul(u, v):
-    out = {}
-    for m1, c1 in u.items():
-        for m2, c2 in v.items():
-            k = tuple(sorted(m1 + m2))
-            out[k] = out.get(k, 0.0) + c1 * c2
-    return out
-
-
-def _cadd(u, v, sign=1.0):
-    out = dict(u)
-    for k, c in v.items():
-        out[k] = out.get(k, 0.0) + sign * c
-    return out
-
-
-def _pmul(p, q):
-    out = {}
-    for (a1, b1, c1), v1 in p.items():
-        for (a2, b2, c2), v2 in q.items():
-            k = (a1 + a2, b1 + b2, c1 + c2)
-            out[k] = _cadd(out.get(k, {}), _cmul(v1, v2))
-    return out
-
-
-def _padd(p, q, sign=1.0):
-    out = dict(p)
-    for k, v in q.items():
-        out[k] = _cadd(out.get(k, {}), v, sign)
-    return out
-
-
-def _pscale(p, s):
-    return {k: {m: c * s for m, c in v.items()} for k, v in p.items()}
-
 
 # Nister column order: the 10 eliminated monomials, then the 10 kept ones.
 _ELIM = [
@@ -102,92 +75,241 @@ _KEPT = [
 _COLS = _ELIM + _KEPT
 
 
-@functools.lru_cache(maxsize=None)
-def _constraint_structure():
-    """The 10 cubic constraints as constants: (triples (T, 3) int64 of basis
-    entry indices, select (T, 200) float32) such that, with ``e`` the 36
-    flattened basis entries, ``prod_t = e[i_t] e[j_t] e[k_t]`` and
-    ``M.reshape(200) = prod @ select``."""
+def _expansion():
+    """The JAX package's trace-time expansion as XLA receives it: a list of
+    nodes ``(op, *operands)``, op ``"in"`` (basis entry ``a*9 + i*3 + j``),
+    ``"mul"``, ``"add"``, ``"neg"`` (times -1) or ``"twice"`` (times 2), and
+    the (10, 20) coefficient nodes (None where a monomial is absent). An add
+    or multiply equal to an earlier one up to operand order is that one, as
+    XLA's CSE merges them; adds of 0 and products with 1 vanish."""
+    nodes, index = [], {}
+
+    def node(*t):
+        key = (t[0], *sorted(t[1:])) if t[0] in ("add", "mul") else t
+        if key not in index:
+            index[key] = len(nodes)
+            nodes.append(t)
+        return index[key]
+
+    def add(x, y):
+        return y if x is None else node("add", x, y)
+
+    def pmul(p, q):
+        out = {}
+        for (a1, b1, c1), v1 in p.items():
+            for (a2, b2, c2), v2 in q.items():
+                k = (a1 + a2, b1 + b2, c1 + c2)
+                out[k] = add(out.get(k), node("mul", v1, v2))
+        return out
+
+    def padd(p, q, sign=1.0):
+        out = dict(p)
+        for k, v in q.items():
+            out[k] = add(out.get(k), v if sign == 1.0 else node("neg", v))
+        return out
+
     ent = [
         [
-            {
-                (1, 0, 0): {(0 * 9 + i * 3 + j,): 1.0},
-                (0, 1, 0): {(1 * 9 + i * 3 + j,): 1.0},
-                (0, 0, 1): {(2 * 9 + i * 3 + j,): 1.0},
-                (0, 0, 0): {(3 * 9 + i * 3 + j,): 1.0},
-            }
+            {(1, 0, 0): node("in", i * 3 + j), (0, 1, 0): node("in", 9 + i * 3 + j),
+             (0, 0, 1): node("in", 18 + i * 3 + j), (0, 0, 0): node("in", 27 + i * 3 + j)}
             for j in range(3)
         ]
         for i in range(3)
     ]
-    rows = []
 
-    # det(E) = 0
     def det3(m):
-        t1 = _pmul(m[0][0], _padd(_pmul(m[1][1], m[2][2]), _pmul(m[1][2], m[2][1]), -1.0))
-        t2 = _pmul(m[0][1], _padd(_pmul(m[1][0], m[2][2]), _pmul(m[1][2], m[2][0]), -1.0))
-        t3 = _pmul(m[0][2], _padd(_pmul(m[1][0], m[2][1]), _pmul(m[1][1], m[2][0]), -1.0))
-        return _padd(_padd(t1, t2, -1.0), t3)
+        t1 = pmul(m[0][0], padd(pmul(m[1][1], m[2][2]), pmul(m[1][2], m[2][1]), -1.0))
+        t2 = pmul(m[0][1], padd(pmul(m[1][0], m[2][2]), pmul(m[1][2], m[2][0]), -1.0))
+        t3 = pmul(m[0][2], padd(pmul(m[1][0], m[2][1]), pmul(m[1][1], m[2][0]), -1.0))
+        return padd(padd(t1, t2, -1.0), t3)
 
-    rows.append(det3(ent))
-
+    rows = [det3(ent)]  # det(E) = 0
     # trace constraint: 2 E E^T E - tr(E E^T) E = 0  (9 equations)
     EEt = [[None] * 3 for _ in range(3)]
     for i in range(3):
         for j in range(3):
             acc = {}
             for k in range(3):
-                acc = _padd(acc, _pmul(ent[i][k], ent[j][k]))
+                acc = padd(acc, pmul(ent[i][k], ent[j][k]))
             EEt[i][j] = acc
-    tr = _padd(_padd(EEt[0][0], EEt[1][1]), EEt[2][2])
+    tr = padd(padd(EEt[0][0], EEt[1][1]), EEt[2][2])
     for i in range(3):
         for j in range(3):
             acc = {}
             for k in range(3):
-                acc = _padd(acc, _pmul(EEt[i][k], ent[k][j]))
-            acc = _pscale(acc, 2.0)
-            acc = _padd(acc, _pmul(tr, ent[i][j]), -1.0)
-            rows.append(acc)
+                acc = padd(acc, pmul(EEt[i][k], ent[k][j]))
+            acc = {k: node("twice", v) for k, v in acc.items()}
+            rows.append(padd(acc, pmul(tr, ent[i][j]), -1.0))
+    return nodes, [[r.get(c) for c in _COLS] for r in rows]
 
-    triple_id: dict[tuple, int] = {}
-    entries = []  # (triple index, flat position, coeff)
-    for r, row in enumerate(rows):
-        for c, mono in enumerate(_COLS):
-            for triple, coeff in row.get(mono, {}).items():
-                if coeff == 0.0:
-                    continue
-                t = triple_id.setdefault(triple, len(triple_id))
-                entries.append((t, r * 20 + c, coeff))
-    triples = np.zeros((len(triple_id), 3), np.int64)
-    for triple, t in triple_id.items():
-        triples[t] = triple
-    select = np.zeros((len(triple_id), 200), np.float32)
-    for t, pos, coeff in entries:
-        select[t, pos] += coeff
-    return triples, select
+
+def _operands(t):
+    return () if t[0] == "in" else t[1:]
+
+
+def _read_order(nodes, root):
+    """The order in which XLA's emitter reads the basis entries of one
+    fusion: it lists the nodes breadth first from the root (operands right to
+    left), walks that list backwards and emits each node after its operands
+    (left to right); a basis entry is read where it is emitted."""
+    listed, seen, i = [root], {root}, 0
+    while i < len(listed):
+        for a in reversed(_operands(nodes[listed[i]])):
+            if a not in seen:
+                seen.add(a)
+                listed.append(a)
+        i += 1
+    done, reads = set(), []
+
+    def emit(n):
+        if n in done:
+            return
+        done.add(n)
+        for a in _operands(nodes[n]):
+            emit(a)
+        if nodes[n][0] == "in":
+            reads.append(n)
+
+    for n in reversed(listed):
+        emit(n)
+    return reads
+
+
+def _fusion(nodes, root, from_eigh):
+    """One coefficient's fusion after LLVM: {node: op}, where op is
+    ``("in", k)``, ``("mul", a, b)``, ``("twice", a)`` or ``("fma", a, b, c,
+    sa, sc)`` = sa * a * b + sc * c rounded once (an add or subtract takes the
+    form ``("fma", x, one, y, 1, +-1)``). ``from_eigh``: XLA reads this
+    fusion's entries straight from ``eigh``'s output (the coefficients of a
+    pure power of x, y or z and the constant one), each through a select on
+    ``eigh``'s status, whose one read after the first entry's gives the
+    first two reads one rank."""
+    rank = {}
+    for k, n in enumerate(_read_order(nodes, root), 1):
+        rank[n] = max(k + (k >= 2), 3) + 1 if from_eigh else k
+    ops, order = {}, []
+
+    def visit(n):
+        if n in ops:
+            return
+        t = nodes[n]
+        if t[0] == "add":  # x + (-y) is x - y (LLVM's InstCombine)
+            x, y = t[1], t[2]
+            if nodes[y][0] == "neg":
+                t = ("sub", x, nodes[y][1])
+            elif nodes[x][0] == "neg":
+                t = ("sub", y, nodes[x][1])
+        for a in _operands(t):
+            visit(a)
+        if t[0] != "in":
+            rank[n] = max(rank[a] for a in _operands(t)) + (t[0] != "neg")
+            if t[0] in ("add", "mul") and rank[t[2]] < rank[t[1]]:
+                t = (t[0], t[2], t[1])
+        ops[n] = t
+        order.append(n)
+
+    visit(root)
+    uses = {}
+    for n in order:
+        for a in _operands(ops[n]):
+            uses[a] = uses.get(a, 0) + 1
+    out = {}
+    for n in order:
+        t = ops[n]
+        if t[0] in ("add", "sub"):
+            sign = 1.0 if t[0] == "add" else -1.0
+            x, y = t[1], t[2]
+            if ops[x][0] in ("mul", "twice") and uses[x] == 1:
+                out[n] = ("fma", *_factors(ops[x]), y, 1.0, sign)
+            elif ops[y][0] in ("mul", "twice") and uses[y] == 1:
+                out[n] = ("fma", *_factors(ops[y]), x, sign, 1.0)
+            else:
+                out[n] = ("fma", x, "one", y, 1.0, sign)
+        else:
+            out[n] = t
+    return out
+
+
+def _factors(t):
+    return (t[1], t[2]) if t[0] == "mul" else (t[1], "two")
+
+
+@functools.lru_cache(maxsize=None)
+def _constraint_program():
+    """The 200 fusions merged into one straight-line program over a value
+    table whose columns are the 36 basis entries, 0, 1, 2 and then every
+    distinct operation. Returns (levels: a list of int64 arrays (5, n) of
+    destination, a, b, c columns and float32 arrays (2, n) of the signs sa,
+    sc, with every operation of a level depending only on earlier levels;
+    the (200,) column of each coefficient; the number of columns)."""
+    nodes, roots = _expansion()
+    cols = {"zero": 36, "one": 37, "two": 38}
+    program, level = [], {}
+    out = np.full(200, cols["zero"], np.int64)
+    for r in range(10):
+        for c in range(20):
+            if roots[r][c] is None:
+                continue
+            ops = _fusion(nodes, roots[r][c], _COLS[c].count(0) >= 2)
+            memo = {}
+
+            def column(n):
+                if isinstance(n, str):
+                    return cols[n]
+                if n not in memo:
+                    t = ops[n]
+                    if t[0] == "in":
+                        memo[n] = t[1]
+                        return memo[n]
+                    if t[0] == "mul":
+                        key = (column(t[1]), column(t[2]), cols["zero"], 1.0, 1.0)
+                    elif t[0] == "twice":
+                        key = (column(t[1]), cols["two"], cols["zero"], 1.0, 1.0)
+                    else:
+                        key = (column(t[1]), column(t[2]), column(t[3]), t[4], t[5])
+                    if key not in cols:
+                        cols[key] = 39 + len(program)
+                        program.append(key)
+                        level[cols[key]] = 1 + max(level.get(k, 0) for k in key[:3])
+                    memo[n] = cols[key]
+                return memo[n]
+
+            out[r * 20 + c] = column(roots[r][c])
+    levels = []
+    for lv in range(1, max(level.values()) + 1):
+        sel = [(39 + i, *key) for i, key in enumerate(program) if level[39 + i] == lv]
+        levels.append((np.array([k[:4] for k in sel], np.int64).T,
+                       np.array([k[4:] for k in sel], np.float32).T))
+    return levels, out, 39 + len(program)
 
 
 @functools.lru_cache(maxsize=None)
 def _constraint_tensors(device: torch.device):
-    triples, select = _constraint_structure()
-    return torch.from_numpy(triples).to(device), torch.from_numpy(select).to(device)
+    levels, out, width = _constraint_program()
+    return ([(torch.from_numpy(i).to(device), torch.from_numpy(sg).to(device)) for i, sg in levels],
+            torch.from_numpy(out).to(device), width)
 
 
 def _constraint_rows(Eb: Tensor) -> Tensor:
     """Eb: (H, 4, 3, 3) nullspace bases. Returns the (H, 10, 20) coefficient
-    matrices of the 10 cubic constraints in Nister's column order."""
+    matrices of the 10 cubic constraints in Nister's column order, each
+    coefficient rounded as the JAX package's compiled expansion rounds it."""
     H = Eb.shape[0]
-    triples, select = _constraint_tensors(Eb.device)
-    e = Eb.reshape(H, 36)
-    prod = e[:, triples[:, 0]] * e[:, triples[:, 1]] * e[:, triples[:, 2]]
-    return (prod @ select).reshape(H, 10, 20)
+    levels, out, width = _constraint_tensors(Eb.device)
+    V = torch.zeros((H, width), dtype=torch.float32, device=Eb.device)
+    V[:, :36] = Eb.reshape(H, 36)
+    V[:, 37], V[:, 38] = 1.0, 2.0
+    for idx, sign in levels:
+        dst, a, b, c = idx
+        V[:, dst] = linalg.fma(V[:, a] * sign[0], V[:, b], V[:, c] * sign[1])
+    return V[:, out].reshape(H, 10, 20)
 
 
 def _gauss_jordan10(A: Tensor) -> Tensor:
     """Reduce the (H, 10, 20) systems so the left 10x10 blocks become
-    identity (partial pivoting, fixed 10 steps). Each step rounds twice,
-    where the JAX package's compiled reduction rounds once (ROADMAP Queue 3:
-    an open difference, tests/test_torch_contraction.py)."""
+    identity (partial pivoting, fixed 10 steps). Each elimination step is
+    rounded once (:func:`linalg.fma`), as in the JAX package's compiled
+    reduction (tests/test_torch_contraction.py)."""
     H = A.shape[0]
     ar = torch.arange(H, device=A.device)
     idx = torch.arange(10, device=A.device)
@@ -207,21 +329,27 @@ def _gauss_jordan10(A: Tensor) -> Tensor:
         # eliminate this column from all other rows
         factors = A[:, :, col].clone()
         factors[:, col] = 0.0
-        A = A - factors[:, :, None] * A[:, col][:, None, :]
+        A = linalg.fma(-factors[:, :, None], A[:, col][:, None, :], A)
     return A
 
 
-def _conv(a: Tensor, b: Tensor) -> Tensor:
-    """Polynomial product along the last dim (ascending coefficients)."""
-    n = a.shape[-1] + b.shape[-1] - 1
-    out = torch.zeros(a.shape[:-1] + (n,), dtype=a.dtype, device=a.device)
-    for i in range(a.shape[-1]):
-        out[..., i : i + b.shape[-1]] += a[..., i : i + 1] * b
+def _conv(a: Tensor, b: Tensor, out: Tensor | None = None) -> Tensor:
+    """Polynomial product along the last dim (ascending coefficients), as the
+    JAX package's compiled ``conv``: the first step is the product
+    ``a[0] * b``, and every later step ``out[i : i + len(b)] += a[i] * b`` is
+    one fused multiply-add. Given ``out``, every step, the first too, adds
+    into a copy of it: XLA folds a sum ``out + conv(a, b)`` into the conv's
+    steps."""
+    nb = b.shape[-1]
+    if out is None:
+        out = torch.zeros(a.shape[:-1] + (a.shape[-1] + nb - 1,), dtype=a.dtype, device=a.device)
+        out[..., :nb] = a[..., :1] * b
+        first = 1
+    else:
+        out, first = out.clone(), 0
+    for i in range(first, a.shape[-1]):
+        out[..., i : i + nb] = linalg.fma(a[..., i : i + 1], b, out[..., i : i + nb])
     return out
-
-
-def _pad_to(c: Tensor, n: int) -> Tensor:
-    return torch.nn.functional.pad(c, (0, n - c.shape[-1]))
 
 
 def _poly_from_rows(A: Tensor):
@@ -254,34 +382,58 @@ def _poly_from_rows(A: Tensor):
     l = combine(R[:, 6], R[:, 7])
     m = combine(R[:, 8], R[:, 9])
 
-    def det_term(a, b, c):
-        return _pad_to(_conv(a, _conv(b, c)), 11)
+    def det_term(a, b, c):  # 11 coefficients for every term
+        return _conv(a, _conv(b, c))
 
+    # The determinant's six terms, combined as XLA compiles the JAX package's
+    # ``((((t1 - t2) - t3) + t4) + t5) - t6``: the fourth term's steps add
+    # into the running sum (scripts/torch_hlo_contractions.py prints the
+    # fusions).
     p = (
         det_term(k[0], l[1], m[2])
         - det_term(k[0], l[2], m[1])
         - det_term(k[1], l[0], m[2])
-        + det_term(k[1], l[2], m[0])
-        + det_term(k[2], l[0], m[1])
-        - det_term(k[2], l[1], m[0])
     )
+    p = _conv(k[1], _conv(l[2], m[0]), out=p)
+    p = p + det_term(k[2], l[0], m[1]) - det_term(k[2], l[1], m[0])
     return p, (k, l, m)
 
 
 def _peval(p: Tensor, z: Tensor) -> Tensor:
     """Horner evaluation of (H, d+1) ascending coefficients at z (H, G), one
-    rounding a step as the JAX package's compiled Horner loop."""
+    rounding a step as the JAX package's compiled Horner loop, and a step
+    below the smallest normal float flushed to zero, as XLA's CPU runtime
+    flushes denormals (near a root at 0 the bisection's signs depend on it)."""
+    tiny = torch.finfo(torch.float32).tiny
     out = torch.zeros_like(z)
     for i in range(p.shape[-1] - 1, -1, -1):
         out = linalg.fma(out, z, p[:, i : i + 1])
+        out = torch.where(out.abs() < tiny, out * 0.0, out)
     return out
+
+
+# The points of the 256-point grid where glibc's ``tanf``, which XLA calls
+# on the CPU, returns the float one ulp from the correctly rounded tan.
+_TANF_ULPS = {40: -1, 80: 1, 83: 1, 177: 1, 189: -1, 227: -1}
 
 
 @functools.lru_cache(maxsize=None)
 def _root_grid(n_grid: int) -> np.ndarray:
-    """tan-spaced grid over the real line, built in float64 and cast once."""
-    theta = np.linspace(-np.pi / 2 * 0.999, np.pi / 2 * 0.999, n_grid)
-    return np.tan(theta).astype(np.float32)
+    """The JAX package's tan-spaced grid over the real line, as its compiled
+    root finder computes it: ``jnp.linspace`` in float32 (``start * (1 - i *
+    r) + i * (stop * r)`` with ``r = 1 / (n - 1)``, every step rounded, the
+    last point ``stop``), then tan rounded to float32 as glibc's ``tanf``
+    rounds it."""
+    f32 = np.float32
+    start, stop = f32(-np.pi / 2 * 0.999), f32(np.pi / 2 * 0.999)
+    i = np.arange(n_grid - 1, dtype=f32)
+    r = f32(1.0 / (n_grid - 1))
+    theta = np.append(start * (f32(1) - i * r) + i * (stop * r), stop)
+    z = np.tan(theta.astype(np.float64)).astype(f32)
+    if n_grid == 256:
+        for k, ulps in _TANF_ULPS.items():
+            z[k] = (z[k:k + 1].view(np.int32) + np.int32(ulps)).view(f32)[0]
+    return z
 
 
 def _real_roots(p: Tensor, n_grid: int = 256, bisect_iters: int = 40):
@@ -336,14 +488,22 @@ def candidates_from_basis(Eb: Tensor):
     z, ok = _real_roots(p)  # (H, 10)
 
     B = [[_peval(g, z) for g in grp] for grp in (k, l, m)]
-    # solve [B00 B01; B10 B11] [x y] = -[B02; B12]
-    det = B[0][0] * B[1][1] - B[0][1] * B[1][0]
+    # solve [B00 B01; B10 B11] [x y] = -[B02; B12]; every product that XLA
+    # contracts into the subtraction or sum after it is rounded once
+    det = linalg.fma(B[0][0], B[1][1], -(B[0][1] * B[1][0]))
     safe = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
-    x = (-B[0][2] * B[1][1] + B[0][1] * B[1][2]) / safe
-    y = (-B[0][0] * B[1][2] + B[0][2] * B[1][0]) / safe
-    coef = torch.stack([x, y, z, torch.ones_like(z)], dim=-1)  # (H, 10, 4)
-    E = torch.einsum("hrk,hkij->hrij", coef, Eb)
-    n = torch.linalg.norm(E, dim=(-2, -1), keepdim=True)
+    x = linalg.fma(B[0][1], B[1][2], -(B[0][2] * B[1][1])) / safe
+    y = linalg.fma(B[0][2], B[1][0], -(B[0][0] * B[1][2])) / safe
+    x, y, zz = (v[..., None, None] for v in (x, y, z))
+    E0, E1, E2, E3 = (Eb[:, None, i] for i in range(4))
+    E = linalg.fma(zz, E2, linalg.fma(x, E0, y * E1)) + E3  # (H, 10, 3, 3)
+    e = E.reshape(E.shape[:2] + (9,))
+    sq = e[..., 0] * e[..., 0]  # the norm's sum of squares, in row-major order
+    for i in range(1, 9):
+        sq = linalg.fma(e[..., i], e[..., i], sq)
+    # sqrt in float64, rounded once: PyTorch's float32 sqrt on the CPU is not
+    # correctly rounded (on 6,639 of 1e6 seeded values), XLA's and the card's are
+    n = torch.sqrt(sq.double()).float()[..., None, None]
     E = E / torch.where(n < 1e-12, torch.ones_like(n), n)
     return E, ok, z
 

@@ -3,13 +3,12 @@ accuracy against ``pmv_tpu``'s: the accuracy sweep's runs with one site
 switched between XLA's one rounding a step (``core.linalg.fma``) and two.
 
     python3 scripts/torch_contraction_sweep.py [--frames 600] [--seeds 0 1 2 3]
-        [--config parity] [--family corridor] [--variants as_is gj10_fused ...] [--device cpu]
+        [--config parity] [--family corridor] [--variants as_is gj10_two_roundings ...] [--device cpu]
 
 Variants: ``as_is`` (the port), ``ba_two_roundings`` (the BA's reduced
 camera system, ``schur_lm.schur_solve``, solved with two roundings a step),
-``gj10_fused`` (the five-point reduction ``_gauss_jordan10`` with one),
-and ``two_roundings`` (every site at two roundings: the port before it
-mirrored XLA's contraction). Each run is
+``gj10_two_roundings`` (the five-point reduction ``_gauss_jordan10`` with
+two) and ``two_roundings`` (every site at two roundings). Each run is
 ``parity_sweep.run_seed`` on the sweep's scene (error files under a
 temporary directory); one JSON line per variant and seed with its bootstrap
 and PnP frames, rebased ATE, its largest estimated step beside the ground
@@ -50,41 +49,26 @@ def two_roundings():
         linalg.fma = real
 
 
-def gauss_jordan10_fused(A: torch.Tensor) -> torch.Tensor:
-    """``five_point._gauss_jordan10`` with each elimination step rounded
-    once (``linalg.fma``), as the JAX package's compiled reduction rounds."""
-    H = A.shape[0]
-    ar, idx = torch.arange(H, device=A.device), torch.arange(10, device=A.device)
-    A = A.clone()
-    for col in range(10):
-        p = torch.argmax(torch.where(idx >= col, A[:, :, col].abs(), -1.0), dim=1)
-        rp, rc = A[ar, p].clone(), A[:, col].clone()
-        A[:, col] = rp
-        A[ar, p] = torch.where((p == col)[:, None], rp, rc)
-        pivot = A[:, col, col]
-        safe = torch.where(pivot.abs() < 1e-12, torch.full_like(pivot, 1e-12), pivot)
-        A[:, col] = A[:, col] / safe[:, None]
-        factors = A[:, :, col].clone()
-        factors[:, col] = 0.0
-        A = linalg.fma(-factors[:, :, None], A[:, col][:, None, :], A)
-    return A
+# variant -> (module, function) run at two roundings
+SITES = {"ba_two_roundings": (schur_lm, "gj_solve"), "gj10_two_roundings": (five_point, "_gauss_jordan10")}
 
 
 @contextlib.contextmanager
 def variant(name: str):
-    saved = schur_lm.gj_solve, five_point._gauss_jordan10
-    if name == "ba_two_roundings":
-        def solve(A, B):
+    site = SITES.get(name)
+    if site:
+        saved = getattr(*site)
+
+        def rounded_twice(*args):
             with two_roundings():
-                return saved[0](A, B)
-        schur_lm.gj_solve = solve
-    if name == "gj10_fused":
-        five_point._gauss_jordan10 = gauss_jordan10_fused
+                return saved(*args)
+        setattr(*site, rounded_twice)
     try:
         with two_roundings() if name == "two_roundings" else contextlib.nullcontext():
             yield
     finally:
-        schur_lm.gj_solve, five_point._gauss_jordan10 = saved
+        if site:
+            setattr(*site, saved)
 
 
 def main() -> int:
@@ -94,7 +78,7 @@ def main() -> int:
     ap.add_argument("--config", default="parity")
     ap.add_argument("--family", default="corridor")
     ap.add_argument("--variants", nargs="+",
-                    default=["as_is", "ba_two_roundings", "gj10_fused", "two_roundings"])
+                    default=["as_is", "ba_two_roundings", "gj10_two_roundings", "two_roundings"])
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
     dev = resolve_device(args.device)

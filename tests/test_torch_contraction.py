@@ -13,8 +13,11 @@ contraction changes an outcome.
 Every site is fed seeded inputs at full size (512 feature slots, KITTI's
 focal length, 128 PnP and 64 five-point hypotheses) and run through the port
 and through the JAX package under ``jit``; RANSAC draws come from the JAX
-package's ``sample_minimal_sets`` and are injected into the port. Each test
-holds the port as it is (one rounding).
+package's ``sample_minimal_sets`` and are injected into the port. The
+five-point solver is compared stage by stage with what the JAX package's
+``five_point_candidates`` computes inside its compiled call, vmapped over 64
+hypotheses as the RANSAC calls it (scripts/torch_hlo_contractions.py prints
+that call's fusions). Each test holds the port as it is (one rounding).
 ``PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_contraction.py``
 prints the audit: every site's counts with two roundings (the port before
 ``fma``) and with one.
@@ -76,8 +79,8 @@ def bits_equal(a, b) -> int:
 
 
 def _load_sweep():
-    """scripts/torch_contraction_sweep.py, whose ``two_roundings`` and
-    ``gauss_jordan10_fused`` give the audit its other rounding of a site."""
+    """scripts/torch_contraction_sweep.py, whose ``two_roundings`` gives the
+    audit its other rounding of a site."""
     path = Path(__file__).resolve().parent.parent / "scripts" / "torch_contraction_sweep.py"
     spec = importlib.util.spec_from_file_location("_torch_contraction_sweep", path)
     mod = importlib.util.module_from_spec(spec)
@@ -86,7 +89,7 @@ def _load_sweep():
 
 
 _sweep = _load_sweep()
-two_roundings, gauss_jordan10_fused = _sweep.two_roundings, _sweep.gauss_jordan10_fused
+two_roundings = _sweep.two_roundings
 
 
 def misrounded(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> tuple[int, int]:
@@ -229,6 +232,46 @@ j_real_roots = jax.jit(jax.vmap(j_fp._real_roots))
 j_candidates = jax.jit(jax.vmap(j_fp.five_point_candidates))
 
 
+def _stages(x1, x2):
+    """``five_point_candidates`` with what each stage hands the next: the
+    basis, the constraint rows, the reduced rows, the polynomial, the roots,
+    the root grid, and the candidates with their validity."""
+    got = {}
+    saved = {name: getattr(j_fp, name) for name in
+             ("_constraint_rows", "_gauss_jordan10", "_poly_from_rows", "_real_roots")}
+    tan = jnp.tan
+
+    def tap(name, key):
+        def fn(x):
+            if name == "_constraint_rows":
+                got["Eb"] = x
+            out = saved[name](x)
+            got[key] = out[0] if isinstance(out, tuple) else out
+            return out
+        return fn
+
+    def grid(x):
+        got["grid"] = tan(x)
+        return got["grid"]
+
+    for name, key in (("_constraint_rows", "M"), ("_gauss_jordan10", "R"),
+                      ("_poly_from_rows", "p"), ("_real_roots", "z")):
+        setattr(j_fp, name, tap(name, key))
+    jnp.tan = grid
+    try:
+        E, ok = j_fp.five_point_candidates(x1, x2)
+    finally:
+        for name, fn in saved.items():
+            setattr(j_fp, name, fn)
+        jnp.tan = tan
+    return {k: got[k] for k in ("Eb", "M", "R", "p", "z", "grid")} | {"E": E, "ok": ok}
+
+
+# The compiled call above with every stage's output as an output as well
+# (the same arithmetic: the stages are materialised in the call anyway).
+j_stages = jax.jit(jax.vmap(_stages))
+
+
 @jax.jit
 def j_horner(p, z):
     """``_real_roots``' ``peval`` (and ``assemble``'s ``ev``), batched."""
@@ -368,52 +411,47 @@ def e_dist(Ea, Eb):
     return min(np.abs(a - b).max(), np.abs(a + b).max())
 
 
-def audit_gauss_jordan10(seeds=range(4), fused=False):
-    """``_gauss_jordan10`` (two roundings; ``fused``: one) on the JAX
-    package's constraint rows of each bootstrap's 64 samples: bit-equal
-    reductions; downstream, the polynomial from the same reduced rows (``_conv``: XLA contracts the sum
-    of its six terms in a way the audit did not reproduce), the validity of
-    its roots under the JAX package's root finder, and the samples whose
-    candidates, from each package's own basis, hold the true E within 5e-2
-    (the port's against the JAX package's)."""
-    st = dict(n=0, bit_equal=0, poly_bit_equal=0, validity_disagree=0, true_E_port=0, true_E_jax=0)
-    real = fp._gauss_jordan10
+@functools.lru_cache(maxsize=None)
+def five_point_stages(seed):
+    """One bootstrap's 64 samples through the JAX package's compiled
+    ``five_point_candidates`` (:data:`j_stages`), as numpy arrays."""
+    _, (uv1, uv2, _), _, samples = five_point_inputs(seed)
+    x1, x2 = (ess.normalize_points(T(u), T(K))[T(samples).long()].numpy() for u in (uv1, uv2))
+    return {k: np.asarray(v) for k, v in j_stages(J(x1), J(x2)).items()}
+
+
+def audit_five_point_chain(seeds=range(4)):
+    """The port's five-point stages on the JAX package's compiled inputs of
+    each stage (its nullspace bases, its constraint rows, its reduced rows,
+    its polynomials), and chained from its bases through
+    ``candidates_from_basis``: the systems whose stage output is bit-equal
+    to the JAX package's, the systems whose roots' validity disagrees and
+    the systems with a candidate E that is not bit-equal."""
+    st = dict(n=0, rows=0, reductions=0, polys=0, roots=0, chained_roots=0,
+              validity_disagree=0, candidates_differ=0)
     for s in seeds:
-        Eb, (uv1, uv2, valid), key, samples = five_point_inputs(s)
-        E_gt = two_view(s)[3]
-        M = np.asarray(j_constraint_rows(J(Eb)))
-        ref = np.asarray(j_gauss_jordan10(J(M)))
-        st["n"] += len(M)
-        try:
-            if fused:
-                fp._gauss_jordan10 = gauss_jordan10_fused
-            got = fp._gauss_jordan10(T(M))
-            x1, x2 = (ess.normalize_points(T(u), T(K))[T(samples).long()] for u in (uv1, uv2))
-            Es, ok = fp.five_point_candidates(x1, x2)
-        finally:
-            fp._gauss_jordan10 = real
-        st["bit_equal"] += bits_equal(got.numpy(), ref)
-        p, _ = fp._poly_from_rows(T(ref))
-        st["poly_bit_equal"] += bits_equal(p.numpy(), j_poly(J(ref)))
-        _, jok = j_real_roots(j_poly(J(ref)))
-        _, gok = j_real_roots(J(fp._poly_from_rows(got)[0].numpy()))
-        st["validity_disagree"] += int((np.asarray(gok) != np.asarray(jok)).any(1).sum())
-        jEs, jok = map(np.asarray, j_candidates(J(x1.numpy()), J(x2.numpy())))
-        for h in range(len(M)):
-            st["true_E_port"] += any(ok[h, i] and e_dist(Es[h, i].numpy(), E_gt) < 5e-2 for i in range(10))
-            st["true_E_jax"] += any(jok[h, i] and e_dist(jEs[h, i], E_gt) < 5e-2 for i in range(10))
+        j = five_point_stages(s)
+        Eb = T(j["Eb"])
+        st["n"] += len(Eb)
+        st["rows"] += bits_equal(fp._constraint_rows(Eb).numpy(), j["M"])
+        st["reductions"] += bits_equal(fp._gauss_jordan10(T(j["M"])).numpy(), j["R"])
+        st["polys"] += bits_equal(fp._poly_from_rows(T(j["R"]))[0].numpy(), j["p"])
+        st["roots"] += bits_equal(fp._real_roots(T(j["p"]))[0].numpy(), j["z"])
+        E, ok, z = fp.candidates_from_basis(Eb)
+        st["chained_roots"] += bits_equal(z.numpy(), j["z"])
+        st["validity_disagree"] += int((ok.numpy() != j["ok"]).any(1).sum())
+        st["candidates_differ"] += len(Eb) - bits_equal(E.numpy(), j["E"])
     return st
 
 
-def audit_true_E_small(seeds=range(6, 14), fused=False):
+def audit_true_E_small(seeds=range(6, 14)):
     """tests/test_torch_solvers.py's ``test_candidates_contain_the_true_essential``
     over 8 scenes (its two-view geometry at f = 500, 40 points, 8 samples
     of 5 each): the samples whose own candidates hold the true E within
-    5e-2, the port's (reduction at two roundings; ``fused``: one) and the
-    JAX package's under ``jit``."""
+    5e-2, the port's (from its own ``eigh`` basis, so not a bar) and the JAX
+    package's under ``jit``."""
     Ks = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32)
     st = dict(samples=0, true_E_port=0, true_E_jax=0)
-    real = fp._gauss_jordan10
     for seed in seeds:
         rng = np.random.default_rng(seed)
         X1 = np.stack([rng.uniform(-10, 10, 40), rng.uniform(-5, 5, 40), rng.uniform(8, 40, 40)], -1)
@@ -424,12 +462,7 @@ def audit_true_E_small(seeds=range(6, 14), fused=False):
         uv = [(X[:, :2] / X[:, 2:3] * [Ks[0, 0], Ks[1, 1]] + [Ks[0, 2], Ks[1, 2]]).astype(np.float32)
               for X in (X1, X2)]
         x1, x2 = (ess.normalize_points(T(u), T(Ks)).reshape(8, 5, 2) for u in uv)
-        try:
-            if fused:
-                fp._gauss_jordan10 = gauss_jordan10_fused
-            Es, ok = fp.five_point_candidates(x1, x2)
-        finally:
-            fp._gauss_jordan10 = real
+        Es, ok = fp.five_point_candidates(x1, x2)
         jEs, jok = map(np.asarray, j_candidates(J(x1.numpy()), J(x2.numpy())))
         E_gt = hat(t) @ R
         st["samples"] += 8
@@ -590,10 +623,10 @@ SITES = {
     "gj_solve (core/linalg.py), polish-scale systems": (True, as_is_and_two_roundings(audit_gj_solve)),
     "gj_inverse at the DLT's 12x12 (pnp._smallest_eigvec12)": (True, as_is_and_two_roundings(audit_gj_inverse)),
     "PnP RANSAC (DLT, polish, inlier scores)": (True, as_is_and_two_roundings(audit_pnp)),
-    "_gauss_jordan10 (five_point.py) + _conv": (False, lambda: (audit_gauss_jordan10(),
-                                                              audit_gauss_jordan10(fused=True))),
-    "_gauss_jordan10: true E among a sample's candidates, f = 500": (
-        False, lambda: (audit_true_E_small(), audit_true_E_small(fused=True))),
+    "five-point stages (five_point.py) from the JAX package's compiled inputs": (
+        True, as_is_and_two_roundings(audit_five_point_chain)),
+    "five-point: true E among a sample's own candidates, f = 500": (
+        True, as_is_and_two_roundings(audit_true_E_small)),
     "_peval (five_point.py), _real_roots": (True, as_is_and_two_roundings(audit_peval)),
     "five-point RANSAC, Sampson polish (essential.py)": (False, as_is_and_two_roundings(audit_five_point)),
     "f32 BA, reduced camera system (schur_lm.py:311)": (True, as_is_and_two_roundings(audit_ba)),
@@ -670,19 +703,54 @@ def test_gj_inverse_at_the_dlt_scale_is_xla_bit_for_bit():
         assert audit_gj_inverse(seeds=[0])["bit_equal"] == 0
 
 
-def test_gauss_jordan10_is_an_open_difference():
-    """The port's reduction of the constraint rows rounds twice a step and
-    equals the JAX package's on none of 256 systems; with one rounding
-    (``gauss_jordan10_fused``) it equals it on all 256 and the roots'
-    validity disagrees less often. On tests/test_torch_solvers.py's scenes
-    fewer samples' own candidates then hold the true E (36 of 64 with two
-    roundings, 31 with one; the JAX package 38). Left open (ROADMAP Queue 3):
-    these counts are what a change of the site has to move."""
-    two, one = audit_gauss_jordan10(), audit_gauss_jordan10(fused=True)
-    assert two["bit_equal"] == 0 and one["bit_equal"] == one["n"] == 4 * E_HYPOS, (two, one)
-    assert one["validity_disagree"] < two["validity_disagree"], (two, one)
-    two, one = audit_true_E_small(), audit_true_E_small(fused=True)
-    assert one["true_E_port"] < two["true_E_port"] <= two["true_E_jax"], (two, one)
+def test_gauss_jordan10_is_xla_bit_for_bit():
+    """The port's reduction of the JAX package's compiled constraint rows,
+    one rounding a step, equals the JAX package's compiled reduction on all
+    256 systems; with two roundings a step it equals it on none."""
+    st = audit_five_point_chain()
+    assert st["reductions"] == st["n"] == 4 * E_HYPOS, st
+    with two_roundings():
+        assert audit_five_point_chain(seeds=[0])["reductions"] == 0
+
+
+def test_poly_from_rows_is_xla_bit_for_bit():
+    """From the same reduced rows the port's polynomial (each conv step one
+    fused multiply-add, the fourth determinant term's steps added into the
+    running sum) equals the JAX package's compiled one on all 256 systems."""
+    st = audit_five_point_chain()
+    assert st["polys"] == st["n"] == 4 * E_HYPOS, st
+
+
+def test_constraint_rows_are_xla_bit_for_bit():
+    """From the same nullspace bases the port's straight-line program gives
+    the JAX package's compiled constraint rows bit for bit on all 256
+    systems (the fusions read straight from ``eigh``'s output included)."""
+    st = audit_five_point_chain()
+    assert st["rows"] == st["n"] == 4 * E_HYPOS, st
+
+
+def test_root_grid_is_xlas():
+    """The port's root grid equals the one the JAX package's compiled
+    ``_real_roots`` brackets on, point for point."""
+    grid = five_point_stages(0)["grid"][0]
+    assert np.array_equal(fp._root_grid(256).view(np.uint32), grid.view(np.uint32))
+
+
+def test_roots_and_validity_from_the_same_basis_match_xla():
+    """From the JAX package's nullspace bases the port's chain lands on the
+    JAX package's roots bit for bit on all 256 systems, and the roots'
+    validity agrees on every system."""
+    st = audit_five_point_chain()
+    assert st["roots"] == st["chained_roots"] == st["n"], st
+    assert st["validity_disagree"] == 0, st
+
+
+def test_candidates_from_the_same_basis_match_xla():
+    """The candidate essential matrices, assembled with XLA's contractions
+    and a correctly rounded norm, are bit-equal to the JAX package's on all
+    256 systems."""
+    st = audit_five_point_chain()
+    assert st["candidates_differ"] == 0, st
 
 
 def test_peval_signs_near_roots_match_xla():

@@ -212,6 +212,12 @@ def finished(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def finished9(tmp_path_factory):
+    """Seed 9's run (tests/test_torch_parallel.py's ``finished9``)."""
+    return make_finished(tmp_path_factory.mktemp("kitti9"), seed=9)
+
+
+@pytest.fixture(scope="module")
 def step_inputs(tmp_path_factory):
     """B seeded states (one corridor per data seed) saved with their RANSAC
     generators, and the next 2C frames of each."""
@@ -233,10 +239,11 @@ def step_inputs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(windows, finished, step_inputs):
+def ranks(windows, finished, finished9, step_inputs):
     """One launch of 4 gloo ranks; every rank's results, in rank order."""
     inp = dict(f64=windows["f64"], one_window=windows["one_window"], comm=windows["comm"],
-               runs={"clean": finished["clean"], "drifted": finished["drifted"]}, **step_inputs)
+               runs={"clean": finished["clean"], "drifted": finished["drifted"],
+                     "drifted9": finished9["drifted"]}, **step_inputs)
     return mesh.launch(rank_checks, RANKS, device_type="cpu", args=(inp,), timeout=600)
 
 
@@ -331,7 +338,8 @@ class TestDistBA:
             assert all(g <= b for g, b in zip(got, bars)), (got, bars)
 
     @pytest.mark.parametrize("part", ["f64.schur", "f64.alternate", "f32.schur", "f32.alternate",
-                                      "one_window", "refine.clean", "refine.drifted"])
+                                      "one_window", "refine.clean", "refine.drifted",
+                                      "refine.drifted9"])
     def test_every_rank_returns_the_same_bits(self, ranks, part):
         assert [r["coord"] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)]
         for r in ranks[1:]:
@@ -372,17 +380,21 @@ class TestDistBA:
 # --------------------------------------------------------------------------
 
 
-def test_refine_matches_the_jax_package(ranks, finished):
+@pytest.mark.parametrize("seed", [5, 9])
+def test_refine_matches_the_jax_package(ranks, request, seed):
     """``global_bundle_adjust`` on a (2, 2) mesh against ``pmv_tpu``'s on
     its (2, 2) virtual CPU mesh, drifted run: poses within 1e-3, or within
     that refinement's own sensitivity where it is larger
     (test_torch_parallel.jax_refine_spread; the chain stitch is exact f64);
-    the drift pulled back as tests/test_parallel_flow.py requires."""
+    the drift pulled back as tests/test_parallel_flow.py requires. Seed 9's
+    run holds points whose pose derivative is NaN in both packages
+    (tests/test_torch_parallel.py's ``test_refine_matches_the_jax_package``)."""
     from test_torch_parallel import jax_refine_spread
 
+    finished = request.getfixturevalue("finished" if seed == 5 else "finished9")
     (R_ref, t_ref), spread = jax_refine_spread(finished["clean"], jax_mesh(2, 2))
     bar = max(1e-3, spread)
-    R, t = ranks[0]["refine.drifted"]
+    R, t = ranks[0]["refine.drifted" if seed == 5 else "refine.drifted9"]
     np.testing.assert_allclose(t, t_ref, rtol=0, atol=bar)
     np.testing.assert_allclose(R, R_ref, rtol=0, atol=bar)
 
@@ -393,6 +405,11 @@ def test_refine_matches_the_jax_package(ranks, finished):
         return float(np.mean(np.linalg.norm(ts[1:] - finished["clean"]["t"][1:], axis=1)))
 
     assert err(t) < err(finished["drifted"]["t"])
+    if seed == 9:
+        # The pose steps that fail leave more than half of the drift, in
+        # the JAX package as in the port: a fact of the reference.
+        assert noise(t_ref) > noise(finished["drifted"]["t"]) / 2
+        return
     assert noise(t) < noise(finished["drifted"]["t"]) / 2
     R_c, t_c = ranks[0]["refine.clean"]
     assert err(t_c) < err(finished["clean"]["t"]) * 1.1 + 0.02

@@ -212,12 +212,12 @@ class TestPoseGraph:
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def finished(tmp_path_factory):
+def finished_run(tmp, seed: int) -> dict:
     """The port's run() on the CPU, as numpy: 20 frames at 96x160 of the
-    scene tests/test_parallel_flow.py refines (density 60, seed 5)."""
-    seq = synthetic.make_sequence(n_frames=20, shape=(96, 160), density=60, seed=5)
-    paths = synthetic.write_kitti_layout(seq, tmp_path_factory.mktemp("kitti"))
+    scene tests/test_parallel_flow.py refines (density 60, data seed
+    ``seed``; that test's is 5)."""
+    seq = synthetic.make_sequence(n_frames=20, shape=(96, 160), density=60, seed=seed)
+    paths = synthetic.write_kitti_layout(seq, tmp)
     cfg = VOConfig(
         image_dir=paths["image_dir"], camera_calibration=paths["camera_calibration"],
         poses=paths["poses"], frames=20, init_frames=2, min_tracked_features=150,
@@ -230,6 +230,19 @@ def finished(tmp_path_factory):
     gt[:, 2] *= -1
     return dict(run=convert.run_to_numpy(pipe),
                 gt=[gt[i + pipe.init_offset] for i in range(len(pipe.t))])
+
+
+@pytest.fixture(scope="module")
+def finished(tmp_path_factory):
+    return finished_run(tmp_path_factory.mktemp("kitti"), 5)
+
+
+@pytest.fixture(scope="module")
+def finished9(tmp_path_factory):
+    """Seed 9's run: its map holds landmarks about 1e26 away, whose pose
+    derivatives overflow to NaN in the JAX package (see
+    ``test_refine_matches_the_jax_package``)."""
+    return finished_run(tmp_path_factory.mktemp("kitti9"), 9)
 
 
 def jax_run(d):
@@ -329,11 +342,17 @@ class TestGlobalRefine:
         global_refine.global_bundle_adjust(run, None, window=8, overlap=4, iters=8, device="cpu")
         assert mean_err(run.t, finished["gt"]) < before * 1.1 + 0.02
 
-    def test_refine_matches_the_jax_package(self, finished):
+    @pytest.mark.parametrize("seed", [5, 9])
+    def test_refine_matches_the_jax_package(self, request, seed):
         """The whole refinement of a drifted run against ``pmv_tpu``'s on a
         one-device mesh, both in float32 windows: poses within 1e-3 of each
         other, or within the refinement's own sensitivity where that is
-        larger (:func:`jax_refine_spread`; the chain stitch is exact f64)."""
+        larger (:func:`jax_refine_spread`; the chain stitch is exact f64).
+        On seed 9 the JAX package's pose derivative of a point about 1e26
+        away is NaN (its forward-mode quotient rule overflows), so every
+        pose step of windows 1-2 fails its cost test; the port's derivative
+        is NaN there too (``schur_lm._residual_jacobians``)."""
+        finished = request.getfixturevalue("finished" if seed == 5 else "finished9")
         run = convert.run_from_reference(finished["run"], "cpu")
         inject_drift(run)
         R_out, t_out = global_refine.global_bundle_adjust(run, None, window=8, overlap=4, iters=8,

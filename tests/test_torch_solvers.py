@@ -224,11 +224,15 @@ class TestFivePoint:
             Ebs.append(np.asarray(vecs[:, :4].T.reshape(4, 3, 3), np.float32))
         Eb = np.stack(Ebs)
         Es, ok, z = fp.candidates_from_basis(T(Eb))
+
+        @jax.jit
+        def j_roots(E):  # compiled, as the port rounds (tests/test_torch_contraction.py)
+            p, _ = j_fp._poly_from_rows(j_fp._gauss_jordan10(j_fp._constraint_rows(E)))
+            return j_fp._real_roots(p)
+
         res, agree, z_close = [], 0, []
         for h in range(8):
-            M = j_fp._gauss_jordan10(j_fp._constraint_rows(J(Eb[h])))
-            p, _ = j_fp._poly_from_rows(M)
-            jz, jok = j_fp._real_roots(p)
+            jz, jok = j_roots(J(Eb[h]))
             if np.array_equal(ok[h].numpy(), np.asarray(jok)):
                 agree += 1
                 k = int(ok[h].sum())
