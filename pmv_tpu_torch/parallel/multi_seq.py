@@ -27,6 +27,7 @@ import torch
 from pmv_tpu_torch import resolve_device
 from pmv_tpu_torch.parallel.mesh import Mesh
 from pmv_tpu_torch.pipeline import fused
+from pmv_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -122,8 +123,10 @@ def make_batched_chunk_step(mesh: Mesh | None, cfg: fused.StepConfig, device=Non
         gens = [None] * B if gens is None else gens
         stats, k = [], state.k
         for b in range(B):
-            out, st = fused.chunk_step(state_at(state, b), imgs_u8[b], gt_steps[b], gens[b], K, cfg)
-            _put(state, b, out)
+            with span("multi_seq.state"):
+                out, st = fused.chunk_step(state_at(state, b), imgs_u8[b], gt_steps[b], gens[b], K, cfg)
+            with span("multi_seq.put"):
+                _put(state, b, out)
             stats.append(st)
             k = out.k
         return state._replace(k=k), stats

@@ -41,6 +41,7 @@ from pmv_tpu_torch.pipeline import steps
 from pmv_tpu_torch.pipeline.heuristics import motion_gate
 from pmv_tpu_torch.solvers import essential, pnp
 from pmv_tpu_torch.solvers.five_point import find_essential_5pt_ransac, ransac_budget
+from pmv_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -217,129 +218,135 @@ def frame_step(
     dev = next_img.device
     N = state.table.capacity
     knn = cfg.matcher == "knn"
-    # kNN reads level 0 only (the JAX package builds the other levels and
-    # XLA drops them unused)
-    next_pyr = build_pyramid(next_img, 0 if knn else cfg.lk_levels)
+    with span("frontend"):
+        # kNN reads level 0 only (the JAX package builds the other levels and
+        # XLA drops them unused)
+        next_pyr = build_pyramid(next_img, 0 if knn else cfg.lk_levels)
 
-    if knn:
-        # Alternate matcher (kNNFeatureMatcher.cpp): fresh corners every
-        # frame + k-nearest patch-SSD association; the previous level-0
-        # image rides in blocks[0][0].
-        kc_xy, _, kc_valid = corners.grid_extract(
-            next_pyr[0], cfg.knn_cand_per_tile,
-            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            quality=cfg.quality, min_distance=cfg.min_distance,
-            response=cfg.response,
-        )
-        tracked_table = knn_matcher.knn_match(
-            state.blocks[0][0], next_pyr[0], state.table, kc_xy, kc_valid,
-            k=cfg.knn_k, window=cfg.knn_window, threshold=cfg.knn_threshold,
-        )
-        new_blocks = ((next_pyr[0],),)
-    else:
-        tracked_table, new_blocks = steps.track_step_cached(
-            state.blocks, next_pyr, state.table,
-            win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
-        )
+        if knn:
+            # Alternate matcher (kNNFeatureMatcher.cpp): fresh corners every
+            # frame + k-nearest patch-SSD association; the previous level-0
+            # image rides in blocks[0][0].
+            kc_xy, _, kc_valid = corners.grid_extract(
+                next_pyr[0], cfg.knn_cand_per_tile,
+                tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                quality=cfg.quality, min_distance=cfg.min_distance,
+                response=cfg.response,
+            )
+            tracked_table = knn_matcher.knn_match(
+                state.blocks[0][0], next_pyr[0], state.table, kc_xy, kc_valid,
+                k=cfg.knn_k, window=cfg.knn_window, threshold=cfg.knn_threshold,
+            )
+            new_blocks = ((next_pyr[0],),)
+        else:
+            tracked_table, new_blocks = steps.track_step_cached(
+                state.blocks, next_pyr, state.table,
+                win=cfg.lk_window, iters=cfg.lk_iters, search=cfg.lk_search,
+            )
     # The one host read-back of the frame: both branch conditions at once
     # (the steady step reads only the reseed's).
-    if steady:
-        tracked = int(tracked_table.num_valid())
-        n3d = state.table.count_3d(state.map.alive)
-    else:
-        tracked, n3d = torch.stack(
-            [tracked_table.num_valid(), state.table.count_3d(state.map.alive)]
-        ).tolist()
+    with span("readback"):
+        if steady:
+            tracked = int(tracked_table.num_valid())
+            n3d = state.table.count_3d(state.map.alive)
+        else:
+            tracked, n3d = torch.stack(
+                [tracked_table.num_valid(), state.table.count_3d(state.map.alive)]
+            ).tolist()
 
     # --- reseed: extraction, merge AND block recapture (kNN: no capture) ---
     reseed_tol = cfg.reseed_tol if cfg.reseed_tol > 0 else cfg.tracked_tol
     fire = tracked < reseed_tol
     next_table = tracked_table
     if fire:
-        cand_xy, cand_score, cand_valid = corners.grid_extract(
-            next_pyr[0], cfg.n_per_tile,
-            tile_h=cfg.tile_h, tile_w=cfg.tile_w,
-            quality=cfg.quality, min_distance=cfg.min_distance,
-            response=cfg.response,
-        )
-        next_table = steps.reseed_merge(
-            tracked_table, cand_xy, cand_score, cand_valid,
-            min_distance=cfg.min_distance,
-        )
-        if not knn:
-            # Reseeded slots moved: the cached blocks no longer cover them.
-            new_blocks = lk.capture_blocks(
-                next_pyr, next_table.xy, win=cfg.lk_window, search=_search(cfg)
+        with span("frontend.reseed"):
+            cand_xy, cand_score, cand_valid = corners.grid_extract(
+                next_pyr[0], cfg.n_per_tile,
+                tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                quality=cfg.quality, min_distance=cfg.min_distance,
+                response=cfg.response,
             )
+            next_table = steps.reseed_merge(
+                tracked_table, cand_xy, cand_score, cand_valid,
+                min_distance=cfg.min_distance,
+            )
+            if not knn:
+                # Reseeded slots moved: the cached blocks no longer cover them.
+                new_blocks = lk.capture_blocks(
+                    next_pyr, next_table.xy, win=cfg.lk_window, search=_search(cfg)
+                )
 
     # --- pose: PnP vs essential-matrix bootstrap (steady: PnP) ---
     is_pnp = n3d >= cfg.tracked_tol
     src = state.table
     gt_step = torch.as_tensor(gt_step, dtype=torch.float32, device=dev)
     if steady or is_pnp:
-        X_std, uv, mask, _ = steps.pnp_inputs(src, next_table, state.map, state.R, state.t)
-        R_d, t_d, inliers = pnp.solve_pnp_ransac(
-            X_std, uv, mask, K, gen, state.R_s, state.t_s,
-            n_hypos=cfg.pnp_hypos, thresh_px=cfg.pnp_thresh, samples=samples,
-        )
-        scale = state.scale
-        n_inl = torch.sum(inliers)
-        new_map = steps.kill_outlier_landmarks(state.map, src.landmark, mask, inliers)
-        src_table = src
+        with span("solvers.pnp"):
+            X_std, uv, mask, _ = steps.pnp_inputs(src, next_table, state.map, state.R, state.t)
+            R_d, t_d, inliers = pnp.solve_pnp_ransac(
+                X_std, uv, mask, K, gen, state.R_s, state.t_s,
+                n_hypos=cfg.pnp_hypos, thresh_px=cfg.pnp_thresh, samples=samples,
+            )
+            scale = state.scale
+            n_inl = torch.sum(inliers)
+            new_map = steps.kill_outlier_landmarks(state.map, src.landmark, mask, inliers)
+            src_table = src
     else:
-        corr = src.valid & next_table.valid
-        if cfg.essential_solver == "five_point":
-            E, inl = find_essential_5pt_ransac(
-                src.xy, next_table.xy, corr, K, gen,
-                n_hypos=ransac_budget(cfg.e_hypos), thresh_px=cfg.e_thresh,
-                samples=samples,
+        with span("solvers.bootstrap"):
+            corr = src.valid & next_table.valid
+            if cfg.essential_solver == "five_point":
+                E, inl = find_essential_5pt_ransac(
+                    src.xy, next_table.xy, corr, K, gen,
+                    n_hypos=ransac_budget(cfg.e_hypos), thresh_px=cfg.e_thresh,
+                    samples=samples,
+                )
+            else:
+                E, inl = essential.find_essential_ransac(
+                    src.xy, next_table.xy, corr, K, gen,
+                    n_hypos=cfg.e_hypos, thresh_px=cfg.e_thresh, samples=samples,
+                )
+            R_d, t_unit, X_tri, front = essential.recover_pose(E, src.xy, next_table.xy, inl, K)
+            t_d = t_unit * gt_step
+            scale = gt_step
+            tri_good = inl & front
+            n_inl = torch.sum(tri_good)
+            src_table, next_table, new_map = steps.register_triangulated(
+                src, next_table, state.map, X_tri, tri_good, scale, state.R, state.t,
             )
-        else:
-            E, inl = essential.find_essential_ransac(
-                src.xy, next_table.xy, corr, K, gen,
-                n_hypos=cfg.e_hypos, thresh_px=cfg.e_thresh, samples=samples,
-            )
-        R_d, t_unit, X_tri, front = essential.recover_pose(E, src.xy, next_table.xy, inl, K)
-        t_d = t_unit * gt_step
-        scale = gt_step
-        tri_good = inl & front
-        n_inl = torch.sum(tri_good)
-        src_table, next_table, new_map = steps.register_triangulated(
-            src, next_table, state.map, X_tri, tri_good, scale, state.R, state.t,
+
+    with span("step.gate"):
+        R_new, t_new, R_s_new, t_s_new, accepted = motion_gate(
+            R_d, t_d, state.R, state.t, state.R_s, state.t_s, scale
         )
 
-    R_new, t_new, R_s_new, t_s_new, accepted = motion_gate(
-        R_d, t_d, state.R, state.t, state.R_s, state.t_s, scale
-    )
+        if cfg.cont_tri:
+            # Map maintenance AFTER the pose is known: triangulate unbound
+            # tracked slots against the accepted pose (a no-op when the gate
+            # rejected or the bootstrap just rebuilt the map). It back-binds
+            # into the source table, which row k of the history then takes.
+            src_table, next_table, new_map = steps.continuous_triangulate(
+                src_table, next_table, new_map,
+                state.R, state.t, R_new, t_new, K,
+                enable=accepted & is_pnp,
+                reproj_px=cfg.cont_tri_reproj_px,
+                min_depth=cfg.cont_tri_min_depth,
+                max_depth=cfg.cont_tri_max_depth,
+            )
 
-    if cfg.cont_tri:
-        # Map maintenance AFTER the pose is known: triangulate unbound
-        # tracked slots against the accepted pose (a no-op when the gate
-        # rejected or the bootstrap just rebuilt the map). It back-binds
-        # into the source table, which row k of the history then takes.
-        src_table, next_table, new_map = steps.continuous_triangulate(
-            src_table, next_table, new_map,
-            state.R, state.t, R_new, t_new, K,
-            enable=accepted & is_pnp,
-            reproj_px=cfg.cont_tri_reproj_px,
-            min_depth=cfg.cont_tri_min_depth,
-            max_depth=cfg.cont_tri_max_depth,
-        )
-
-    k_new = state.k + 1
-    # Histories are updated in place (see the module docstring). Row k gets
-    # the source table back (the bootstrap may have bound landmarks into it),
-    # row k+1 the new table. A steady step without cont_tri binds
-    # nothing into the source table, which row k already holds.
-    state.R_hist[k_new] = R_new
-    state.t_hist[k_new] = t_new
-    if not steady or cfg.cont_tri:
-        state.tbl_xy_hist[state.k] = src_table.xy
-        state.tbl_valid_hist[state.k] = src_table.valid
-        state.tbl_lm_hist[state.k] = src_table.landmark
-    state.tbl_xy_hist[k_new] = next_table.xy
-    state.tbl_valid_hist[k_new] = next_table.valid
-    state.tbl_lm_hist[k_new] = next_table.landmark
+        k_new = state.k + 1
+        # Histories are updated in place (see the module docstring). Row k gets
+        # the source table back (the bootstrap may have bound landmarks into it),
+        # row k+1 the new table. A steady step without cont_tri binds
+        # nothing into the source table, which row k already holds.
+        state.R_hist[k_new] = R_new
+        state.t_hist[k_new] = t_new
+        if not steady or cfg.cont_tri:
+            state.tbl_xy_hist[state.k] = src_table.xy
+            state.tbl_valid_hist[state.k] = src_table.valid
+            state.tbl_lm_hist[state.k] = src_table.landmark
+        state.tbl_xy_hist[k_new] = next_table.xy
+        state.tbl_valid_hist[k_new] = next_table.valid
+        state.tbl_lm_hist[k_new] = next_table.landmark
 
     new_state = state._replace(
         blocks=new_blocks,
@@ -388,14 +395,16 @@ def chunk_step(
     cadence = ba_cadence(cfg)
     all_stats = []
     for i in range(imgs_u8.shape[0]):
-        state, _, stats = frame_step(
-            state, imgs_u8[i].to(torch.float32), gt_steps[i], gen, K, cfg, steady=steady
-        )
-        j = state.k - 1
-        if cfg.bundle_size > 0 and j > 0 and j % cadence == 0:
-            state = ba_step(state, K, cfg)
-        if cfg.map_hist_rows > 0:
-            state.map_hist[min(state.k // cadence, cfg.map_hist_rows - 1)] = state.map.xyz
+        with span("frame"):
+            state, _, stats = frame_step(
+                state, imgs_u8[i].to(torch.float32), gt_steps[i], gen, K, cfg, steady=steady
+            )
+            j = state.k - 1
+            if cfg.bundle_size > 0 and j > 0 and j % cadence == 0:
+                with span("ba"):
+                    state = ba_step(state, K, cfg)
+            if cfg.map_hist_rows > 0:
+                state.map_hist[min(state.k // cadence, cfg.map_hist_rows - 1)] = state.map.xyz
         all_stats.append(stats)
     return state, all_stats
 
@@ -415,59 +424,62 @@ def ba_step(state: StepState, K: Tensor, cfg: StepConfig) -> StepState:
     cap = state.map.capacity
     fn = state.k + 1
     f_ids = [fn - P + i for i in range(P)]  # window frame indices (may be < 0 early)
-    present = torch.tensor([f >= 0 for f in f_ids], device=dev)
-    pose_free = torch.tensor([f >= 1 for f in f_ids], device=dev)
-    f_safe = torch.tensor([max(f, 0) for f in f_ids], device=dev)
+    with span("ba.window"):
+        present = torch.tensor([f >= 0 for f in f_ids], device=dev)
+        pose_free = torch.tensor([f >= 1 for f in f_ids], device=dev)
+        f_safe = torch.tensor([max(f, 0) for f in f_ids], device=dev)
 
-    xy = state.tbl_xy_hist[f_safe]
-    valid = state.tbl_valid_hist[f_safe] & present[:, None]
-    lm = state.tbl_lm_hist[f_safe]
-    obs_uv, _, obs_lm, obs_mask = steps.assemble_ba_window(xy, valid, lm, state.map)
-    tr = geo.pose_to_ba_params(state.R_hist[f_safe], state.t_hist[f_safe])
+        xy = state.tbl_xy_hist[f_safe]
+        valid = state.tbl_valid_hist[f_safe] & present[:, None]
+        lm = state.tbl_lm_hist[f_safe]
+        obs_uv, _, obs_lm, obs_mask = steps.assemble_ba_window(xy, valid, lm, state.map)
+        tr = geo.pose_to_ba_params(state.R_hist[f_safe], state.t_hist[f_safe])
 
-    # Compact the window to its unique landmarks: the solver's block tensors
-    # are dense over the landmark axis, so shrinking it from map_capacity to
-    # the window's live landmarks cuts BA cost ~an order of magnitude. A
-    # window can't contain more distinct LIVE ids than the map has slots, so
-    # min(P*N, capacity) is drop-free; observations of landmarks beyond an
-    # explicit smaller cap are masked out instead of mis-indexed.
-    N_cap = xy.shape[1]
-    L_win = cfg.ba_lm_cap if cfg.ba_lm_cap > 0 else min(P * N_cap, cap)
-    ids = torch.where(obs_mask, obs_lm, cap)
-    uniq = torch.unique(ids, sorted=True)[:L_win]
-    uniq = torch.nn.functional.pad(uniq, (0, L_win - uniq.shape[0]), value=cap)
-    local = torch.searchsorted(uniq, ids).clamp(max=L_win - 1)
-    kept = uniq[local] == ids
-    # Count calls that actually DROPPED an observation (a live id absent from
-    # the saturated unique table).
-    saturated = torch.any(obs_mask & ~kept).to(torch.int32)
-    obs_mask = obs_mask & kept
-    uniq_safe = torch.clamp(uniq, max=cap - 1)
-    lm_local = state.map.xyz[uniq_safe.long()]
+        # Compact the window to its unique landmarks: the solver's block tensors
+        # are dense over the landmark axis, so shrinking it from map_capacity to
+        # the window's live landmarks cuts BA cost ~an order of magnitude. A
+        # window can't contain more distinct LIVE ids than the map has slots, so
+        # min(P*N, capacity) is drop-free; observations of landmarks beyond an
+        # explicit smaller cap are masked out instead of mis-indexed.
+        N_cap = xy.shape[1]
+        L_win = cfg.ba_lm_cap if cfg.ba_lm_cap > 0 else min(P * N_cap, cap)
+        ids = torch.where(obs_mask, obs_lm, cap)
+        uniq = torch.unique(ids, sorted=True)[:L_win]
+        uniq = torch.nn.functional.pad(uniq, (0, L_win - uniq.shape[0]), value=cap)
+        local = torch.searchsorted(uniq, ids).clamp(max=L_win - 1)
+        kept = uniq[local] == ids
+        # Count calls that actually DROPPED an observation (a live id absent from
+        # the saturated unique table).
+        saturated = torch.any(obs_mask & ~kept).to(torch.int32)
+        obs_mask = obs_mask & kept
+        uniq_safe = torch.clamp(uniq, max=cap - 1)
+        lm_local = state.map.xyz[uniq_safe.long()]
 
-    tr_out, lm_local_out, _ = schur_lm.ba_solve_grid(
-        tr,
-        lm_local,
-        obs_uv.reshape(P, N_cap, 2),
-        local.reshape(P, N_cap),
-        obs_mask.reshape(P, N_cap),
-        pose_free,
-        K,
-        iters=cfg.ba_iters,
-        obs_gate_px=cfg.ba_obs_gate_px,
-    )
-    R_new, t_new = geo.ba_params_to_pose(tr_out)
-    # Scatter optimized landmarks back to the global map, and only the free
-    # poses back to the trajectory (the clipped early-window ids repeat row 0).
-    lm_out = scatter_rows(state.map.xyz, uniq_safe, lm_local_out, uniq < cap)
-    R_hist = scatter_rows(state.R_hist, f_safe, R_new, pose_free)
-    t_hist = scatter_rows(state.t_hist, f_safe, t_new, pose_free)
+    with span("ba.solve"):
+        tr_out, lm_local_out, _ = schur_lm.ba_solve_grid(
+            tr,
+            lm_local,
+            obs_uv.reshape(P, N_cap, 2),
+            local.reshape(P, N_cap),
+            obs_mask.reshape(P, N_cap),
+            pose_free,
+            K,
+            iters=cfg.ba_iters,
+            obs_gate_px=cfg.ba_obs_gate_px,
+        )
+    with span("ba.scatter"):
+        R_new, t_new = geo.ba_params_to_pose(tr_out)
+        # Scatter optimized landmarks back to the global map, and only the free
+        # poses back to the trajectory (the clipped early-window ids repeat row 0).
+        lm_out = scatter_rows(state.map.xyz, uniq_safe, lm_local_out, uniq < cap)
+        R_hist = scatter_rows(state.R_hist, f_safe, R_new, pose_free)
+        t_hist = scatter_rows(state.t_hist, f_safe, t_new, pose_free)
 
-    return state._replace(
-        map=state.map._replace(xyz=lm_out),
-        R_hist=R_hist,
-        t_hist=t_hist,
-        R=R_hist[state.k].clone(),
-        t=t_hist[state.k].clone(),
-        ba_overflow=state.ba_overflow + saturated,
-    )
+        return state._replace(
+            map=state.map._replace(xyz=lm_out),
+            R_hist=R_hist,
+            t_hist=t_hist,
+            R=R_hist[state.k].clone(),
+            t=t_hist[state.k].clone(),
+            ba_overflow=state.ba_overflow + saturated,
+        )

@@ -44,7 +44,7 @@ from pmv_tpu_torch.pipeline.heuristics import motion_gate
 from pmv_tpu_torch.solvers import essential, pnp
 from pmv_tpu_torch.solvers.five_point import find_essential_5pt_ransac, ransac_budget
 from pmv_tpu_torch.utils import checkpoint
-from pmv_tpu_torch.utils.profiling import Stopwatch
+from pmv_tpu_torch.utils.profiling import Stopwatch, span
 
 
 def ba_cadence(cfg: VOConfig) -> int:
@@ -127,7 +127,8 @@ class OdometryPipeline:
         self.ba_overflow = 0  # BA windows of run() that saturated ba_lm_cap
         self._ba_cadence = ba_cadence(cfg)
         self._prev_pyr = None  # the modular loop's previous pyramid
-        # tick/tock stack of the run time and the verbose stage times
+        # tick/tock stack of the run time; stage times are the spans of
+        # utils.profiling's tracer
         self._watch = Stopwatch(self.device)
         # Landmark-position snapshots of run() (StepState.map_hist), read
         # back only when a video is asked for (viz/render.py replay).
@@ -444,10 +445,11 @@ class OdometryPipeline:
     def _upload(self, frames: list[np.ndarray]) -> torch.Tensor:
         """One chunk of frames to the device as uint8 (4x less transfer than
         float32), from pinned memory where the device is a GPU."""
-        host = torch.from_numpy(np.stack(frames).astype(np.uint8))
-        if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host
+        with span("run.upload"):
+            host = torch.from_numpy(np.stack(frames).astype(np.uint8))
+            if self.device.type == "cuda":
+                return host.pin_memory().to(self.device, non_blocking=True)
+            return host
 
     @torch.no_grad()
     def run(self) -> dict:
@@ -468,29 +470,30 @@ class OdometryPipeline:
                 flush=True,
             )
             return self.run_modular()
-        init_paths = self.file_names[: cfg.init_frames]
-        init_imgs = [img for _, img in FramePrefetcher(init_paths)]
-        self.initialise(init_imgs)
-        self._seed_trajectory()
+        with span("run.init"):
+            init_paths = self.file_names[: cfg.init_frames]
+            init_imgs = [img for _, img in FramePrefetcher(init_paths)]
+            self.initialise(init_imgs)
+            self._seed_trajectory()
 
-        img0 = init_imgs[self.init_offset]
-        step_cfg = self._step_config(img0.shape)
-        start = self.init_offset + 1
-        stop = min(cfg.frames, len(self.file_names))
-        ckpt = Path(cfg.checkpoint_path) if cfg.checkpoint_path else None
-        if cfg.resume and ckpt is not None and ckpt.exists():
-            # The snapshot holds the state and where the RANSAC generator
-            # stood: the run goes on exactly as the uninterrupted one.
-            state, _ = checkpoint.load_fused_state(ckpt, self.device, generator=self._gen)
-            self._log(f"Resumed fused state at frame {state.k} from {ckpt}")
-        else:
-            img0_dev = torch.as_tensor(img0, dtype=torch.float32).to(self.device)
-            state = fused.init_state(
-                pyr=build_pyramid(img0_dev, cfg.lk_levels),
-                table=self.tables[0],
-                map_state=self.map,
-                cfg=step_cfg,
-            )
+            img0 = init_imgs[self.init_offset]
+            step_cfg = self._step_config(img0.shape)
+            start = self.init_offset + 1
+            stop = min(cfg.frames, len(self.file_names))
+            ckpt = Path(cfg.checkpoint_path) if cfg.checkpoint_path else None
+            if cfg.resume and ckpt is not None and ckpt.exists():
+                # The snapshot holds the state and where the RANSAC generator
+                # stood: the run goes on exactly as the uninterrupted one.
+                state, _ = checkpoint.load_fused_state(ckpt, self.device, generator=self._gen)
+                self._log(f"Resumed fused state at frame {state.k} from {ckpt}")
+            else:
+                img0_dev = torch.as_tensor(img0, dtype=torch.float32).to(self.device)
+                state = fused.init_state(
+                    pyr=build_pyramid(img0_dev, cfg.lk_levels),
+                    table=self.tables[0],
+                    map_state=self.map,
+                    cfg=step_cfg,
+                )
         k_last = state.k
 
         self._watch.tick()
@@ -500,10 +503,11 @@ class OdometryPipeline:
         stats_all: list[dict] = []
 
         def flush(state):
-            imgs = self._upload(buf_img)
-            state, stats = fused.chunk_step(
-                state, imgs, list(buf_gt), self._gen, self.K, step_cfg
-            )
+            with span("run.chunk"):
+                imgs = self._upload(buf_img)
+                state, stats = fused.chunk_step(
+                    state, imgs, list(buf_gt), self._gen, self.K, step_cfg
+                )
             stats_all.extend(stats)
             buf_img.clear()
             buf_gt.clear()
@@ -521,8 +525,9 @@ class OdometryPipeline:
             if not (due or force):
                 return
             tmp = Path(str(ckpt) + ".tmp.npz")
-            checkpoint.save_fused_state(state, tmp, generator=self._gen)
-            tmp.replace(ckpt)
+            with span("checkpoint.save"):
+                checkpoint.save_fused_state(state, tmp, generator=self._gen)
+                tmp.replace(ckpt)
             last_saved = k_last
 
         def maybe_live(state):
@@ -569,24 +574,25 @@ class OdometryPipeline:
         cadence = fused.ba_cadence(step_cfg)
         self._ba_calls = sum(1 for j in range(1, k_last) if j % cadence == 0)
         # One readback for the whole run.
-        self.map = state.map
-        R_hist = state.R_hist.cpu().numpy()
-        t_hist = state.t_hist.cpu().numpy()
-        self.runtime = self._watch.tock()
-        self.R = [np.asarray(R_hist[i], np.float64) for i in range(k_last + 1)]
-        self.t = [np.asarray(t_hist[i], np.float64) for i in range(k_last + 1)]
-        self.R_s = [state.R_s.cpu().numpy().astype(np.float64)]
-        self.t_s = [state.t_s.cpu().numpy().astype(np.float64)]
-        self.scale = float(state.scale)
-        # Per-frame statistics and feature tables, materialized post-run,
-        # outside the timed window.
-        if stats_all:
-            inl = torch.stack([s["inliers"] for s in stats_all]).tolist()
-            acc = torch.stack([s["accepted"] for s in stats_all]).tolist()
-            self.frame_stats = [
-                {**s, "inliers": int(i), "accepted": bool(a)}
-                for s, i, a in zip(stats_all, inl, acc)
-            ]
+        with span("run.readback"):
+            self.map = state.map
+            R_hist = state.R_hist.cpu().numpy()
+            t_hist = state.t_hist.cpu().numpy()
+            self.runtime = self._watch.tock()
+            self.R = [np.asarray(R_hist[i], np.float64) for i in range(k_last + 1)]
+            self.t = [np.asarray(t_hist[i], np.float64) for i in range(k_last + 1)]
+            self.R_s = [state.R_s.cpu().numpy().astype(np.float64)]
+            self.t_s = [state.t_s.cpu().numpy().astype(np.float64)]
+            self.scale = float(state.scale)
+            # Per-frame statistics and feature tables, materialized post-run,
+            # outside the timed window.
+            if stats_all:
+                inl = torch.stack([s["inliers"] for s in stats_all]).tolist()
+                acc = torch.stack([s["accepted"] for s in stats_all]).tolist()
+                self.frame_stats = [
+                    {**s, "inliers": int(i), "accepted": bool(a)}
+                    for s, i, a in zip(stats_all, inl, acc)
+                ]
         for s in self.frame_stats:
             self._log(
                 f"frame: tracked {s['tracked']}, n3d {s['n3d']}, "

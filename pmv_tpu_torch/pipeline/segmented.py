@@ -28,6 +28,7 @@ from pmv_tpu_torch.io.prefetch import FramePrefetcher
 from pmv_tpu_torch.parallel import multi_seq
 from pmv_tpu_torch.pipeline import fused
 from pmv_tpu_torch.pipeline.odometry import OdometryPipeline
+from pmv_tpu_torch.utils.profiling import span
 
 
 def stitch_segments(R_hist: np.ndarray, t_hist: np.ndarray, L: int):
@@ -180,10 +181,11 @@ class SegmentedPipeline(OdometryPipeline):
     def run(self) -> dict:
         cfg = self.cfg
         B = self.segments
-        seg = self.seed_segments()
-        L, seg_starts, step_cfg, gens, gt_steps = seg.L, seg.starts, seg.step_cfg, seg.gens, seg.gt_steps
-        state = multi_seq.batch_states(seg.states)
-        del seg
+        with span("segmented.seed"):
+            seg = self.seed_segments()
+            L, seg_starts, step_cfg, gens, gt_steps = seg.L, seg.starts, seg.step_cfg, seg.gens, seg.gt_steps
+            state = multi_seq.batch_states(seg.states)
+            del seg
         step = multi_seq.make_batched_chunk_step(None, step_cfg, device=self.device)
         frames = [iter(FramePrefetcher(self.file_names[s + 1: s + 1 + L])) for s in seg_starts]
 
@@ -193,25 +195,28 @@ class SegmentedPipeline(OdometryPipeline):
         done = 0
         while done < L:
             take = min(C, L - done)
-            imgs = self._upload([np.stack([next(it)[1] for _ in range(take)]) for it in frames])
-            state, chunk_stats = step(state, imgs, gt_steps[:, done: done + take].tolist(), gens, self.K)
+            with span("run.chunk"):
+                imgs = self._upload([np.stack([next(it)[1] for _ in range(take)]) for it in frames])
+                state, chunk_stats = step(state, imgs, gt_steps[:, done: done + take].tolist(), gens, self.K)
             for b in range(B):
                 stats[b].extend(chunk_stats[b])
             done += take
-        R_hist = state.R_hist.cpu().numpy()
-        t_hist = state.t_hist.cpu().numpy()
-        self.runtime = self._watch.tock()
+        with span("run.readback"):
+            R_hist = state.R_hist.cpu().numpy()
+            t_hist = state.t_hist.cpu().numpy()
+            self.runtime = self._watch.tock()
 
-        self.R, self.t = stitch_segments(R_hist, t_hist, L)
-        self.R_s = [np.eye(3)]
-        self.t_s = [np.zeros(3)]
-        # Each segment fires BA at local j in [1, L) at the step's cadence.
-        cadence = fused.ba_cadence(step_cfg)
-        self._ba_calls = B * sum(1 for j in range(1, L) if j % cadence == 0)
-        self.segment_stats = [
-            [{**s, "n3d": int(s["n3d"]), "inliers": int(s["inliers"]), "accepted": bool(s["accepted"])}
-             for s in seg] for seg in stats
-        ]
+            with span("segmented.stitch"):
+                self.R, self.t = stitch_segments(R_hist, t_hist, L)
+            self.R_s = [np.eye(3)]
+            self.t_s = [np.zeros(3)]
+            # Each segment fires BA at local j in [1, L) at the step's cadence.
+            cadence = fused.ba_cadence(step_cfg)
+            self._ba_calls = B * sum(1 for j in range(1, L) if j % cadence == 0)
+            self.segment_stats = [
+                [{**s, "n3d": int(s["n3d"]), "inliers": int(s["inliers"]), "accepted": bool(s["accepted"])}
+                 for s in seg] for seg in stats
+            ]
         self.frame_stats = [s for seg in self.segment_stats for s in seg]
         self.segment_length = L
         # As in the JAX package, only segment 0's last table and map are kept.
