@@ -30,6 +30,13 @@ Phases, each printing one JSON line as it ends:
                so that ms/frame is not the libraries' start-up; every level
                it tracks is also held to the plain version on the same
                inputs);
+   ba_graph — ``schur_lm.ba_solve_grid``'s replay of its CUDA graph
+               against the eager body ``_ba_solve_grid_eager``, bit for bit,
+               on BA windows recorded from runs at the main path's shapes and
+               at ``HD_CFG``'s, at 5 and 50 iterations, gate off and on; two
+               windows through one graph (no aliasing of a returned tensor);
+               host and device ms per call, eager against replay, the
+               capture's time and the ``ba.graph.*`` counters;
 5. knn_hd   — BASELINE.json config #3 at full width on the same corridor:
                ``matcher=knn``, ``extractor=fast``, 2048 feature slots
                (FAST responses and no LK blocks: no kernel may launch), two
@@ -798,6 +805,127 @@ def phase_main(paths: dict, tmp: str, n_frames: int, data_s: float) -> dict:
     if not error_file.startswith("Runtime: "):
         raise AssertionError("error file malformed")
     return line, pipe
+
+
+# --------------------------------------------------------------------------
+# ba_graph: the BA solve's CUDA graph against its eager body
+# --------------------------------------------------------------------------
+
+BA_GRAPH_FRAMES = 20  # frames of each run whose BA windows are recorded
+BA_GRAPH_ITERS = (5, 50)
+BA_GRAPH_GATES = (0.0, 2.0)
+BA_GRAPH_REPS = 3
+
+
+def record_ba_windows(paths: dict, tmp: str, settings: dict) -> list:
+    """The inputs of every ``ba_solve_grid`` call of a run of
+    ``BA_GRAPH_FRAMES`` frames at ``settings``, copied: (args, kwargs)."""
+    windows = []
+    solve = schur_lm.ba_solve_grid
+
+    def recording(*args, **kw):
+        windows.append(([a.clone() for a in args], dict(kw)))
+        return solve(*args, **kw)
+
+    schur_lm.ba_solve_grid = recording
+    try:
+        OdometryPipeline(vo_config(paths, tmp, BA_GRAPH_FRAMES, **settings), device="cuda").run()
+    finally:
+        schur_lm.ba_solve_grid = solve
+    torch.cuda.synchronize()
+    return windows
+
+
+def solve_bits(out) -> list:
+    tr, lm, st = out
+    return [tr, lm, st["cost0"], st["cost"], st["history"]]
+
+
+def same_bits(a: list, b: list) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def host_and_device_ms(fn) -> tuple[float, float]:
+    """Median host time of issuing one call (no synchronise inside) and
+    median device time of the call by CUDA events, over ``BA_GRAPH_REPS``."""
+    host, dev = [], []
+    for _ in range(BA_GRAPH_REPS):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev.append(a.elapsed_time(b))
+    return statistics.median(host), statistics.median(dev)
+
+
+def phase_ba_graph(paths: dict, tmp: str) -> dict:
+    """``schur_lm.ba_solve_grid``'s replay of its CUDA graph against
+    ``_ba_solve_grid_eager`` bit for bit (poses, landmarks, first and last
+    cost, history) on the last two BA windows of a run at the main path's
+    shapes (P 5, N 512, L_win 2560) and at ``HD_CFG``'s, at 5 and 50
+    iterations, with the observation gate off and on. The two windows go
+    through one graph one after the other: the second call must give the
+    second window's eager bits and leave the first call's returned tensors
+    as they were. Host and device ms per call, eager against replay; each
+    new shape's capture (warm-up call, capture, instantiation, first
+    replay); the counters: one capture a new shape, one replay a call."""
+    t_phase = time.perf_counter()
+    shapes = {}
+    rows, failures = [], []
+    graphs_before, calls = len(schur_lm._GRAPHS), 0
+    tracer = profiling.Tracer()
+    with profiling.tracing(tracer):
+        for name, settings in (("main", MAIN_CFG), ("hd", HD_CFG)):
+            windows = record_ba_windows(paths, tmp, settings)
+            calls += len(windows)
+            if len(windows) < 2:
+                raise AssertionError(f"ba_graph: {name}: {len(windows)} BA windows recorded")
+            (wa, kw), (wb, _) = windows[-2:]
+            P, N = wa[4].shape
+            shapes[name] = {"P": P, "N": N, "L_win": wa[1].shape[0], "windows_recorded": len(windows)}
+            for iters in BA_GRAPH_ITERS:
+                for gate in BA_GRAPH_GATES:
+                    kw = dict(kw, iters=iters, obs_gate_px=gate)
+                    eager = [solve_bits(schur_lm._ba_solve_grid_eager(*w, **kw)) for w in (wa, wb)]
+                    cached = len(schur_lm._GRAPHS)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got_a = solve_bits(schur_lm.ba_solve_grid(*wa, **kw))
+                    torch.cuda.synchronize()
+                    first_s = time.perf_counter() - t0
+                    kept_a = [x.clone() for x in got_a]
+                    got_b = solve_bits(schur_lm.ba_solve_grid(*wb, **kw))
+                    torch.cuda.synchronize()
+                    row = {"shape": name, "iters": iters, "obs_gate_px": gate,
+                           "first_window_bit_equal": same_bits(got_a, eager[0]),
+                           "second_window_bit_equal": same_bits(got_b, eager[1]),
+                           "first_output_kept": same_bits(got_a, kept_a),
+                           "windows_differ": not same_bits(eager[0], eager[1])}
+                    if len(schur_lm._GRAPHS) > cached:
+                        row["capture_and_first_call_s"] = first_s
+                    row["eager_host_ms"], row["eager_device_ms"] = host_and_device_ms(
+                        lambda: schur_lm._ba_solve_grid_eager(*wb, **kw))
+                    row["replay_host_ms"], row["replay_device_ms"] = host_and_device_ms(
+                        lambda: schur_lm.ba_solve_grid(*wb, **kw))
+                    calls += 2 + BA_GRAPH_REPS
+                    rows.append(row)
+                    if not all(row[k] for k in ("first_window_bit_equal", "second_window_bit_equal",
+                                                "first_output_kept", "windows_differ")):
+                        failures.append(row)
+    counters = {k: tracer.counters.get(k, 0) for k in ("ba.graph.capture", "ba.graph.replay")}
+    want = {"ba.graph.capture": len(schur_lm._GRAPHS) - graphs_before, "ba.graph.replay": calls}
+    line = {"phase": "ba_graph", "shapes": shapes, "rows": rows, "counters": counters,
+            "counters_want": want, "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if failures:
+        raise AssertionError(f"ba_graph: the replay differs from the eager body: {failures}")
+    if counters != want:
+        raise AssertionError(f"ba_graph: counters {counters} are not {want}")
+    return line
 
 
 def phase_knn_hd(paths: dict, tmp: str, n_frames: int) -> dict:
@@ -2103,6 +2231,7 @@ def main() -> int:
             refine_line = phase_refine(main_pipe)
             main_run = MainRun(main_pipe)
             del main_pipe
+            phase_ba_graph(paths, tmp)
             by_path = {"main": main_line["launches"],
                        "knn_hd": phase_knn_hd(paths, tmp, args.frames)["launches"],
                        "knn_good": phase_knn_good(paths, tmp, PATH_FRAMES)["launches"],

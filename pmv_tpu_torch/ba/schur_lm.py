@@ -19,7 +19,10 @@ Two solvers share the damped Schur solve and the LM loop:
 - :func:`ba_solve_grid` (the default loop's, ``fused.ba_step``): observations
   laid out (P, N) pose-major. The JAX package's one-hot matrix products and
   their chunking were scatter workarounds of its target and are not carried
-  over.
+  over. On a CUDA device a call replays a CUDA graph of the eager body, one
+  graph per window shape (:func:`_graph_key`): the loop is thousands of
+  small kernels (about 32k at 50 iterations) whose launches, not their
+  work, set its time, and it never reads a value back.
 - :func:`ba_solve` (the modular loop's, ``OdometryPipeline.bundle_adjust``):
   flat observation arrays (O,), a :class:`BAProblem`; the pose blocks are
   summed the same way as the landmark blocks.
@@ -42,6 +45,7 @@ import torch.distributed as dist
 
 from pmv_tpu_torch.core import geometry as geo
 from pmv_tpu_torch.core.linalg import gj_solve
+from pmv_tpu_torch.utils.profiling import count
 
 Tensor = torch.Tensor
 
@@ -331,11 +335,12 @@ def _lm_loop(tr, lm, lam0, iters, step_fn, cost_fn):
     decreases; on accept lam /= 3 (floored at 1e-6 — in f32 a near-zero lam
     lets the Schur solve amplify rounding noise along weakly-observed
     directions), on reject lam *= 4 (capped at 1e6). The accept test is a
-    ``torch.where`` on device values: no host synchronisation.
+    ``torch.where`` on device values, and ``lam0`` is filled in on the
+    device: no host synchronisation, so a CUDA graph can hold the loop.
     """
     cost0 = cost_fn(tr, lm)
     cost = cost0
-    lam = torch.as_tensor(lam0, dtype=tr.dtype, device=tr.device)
+    lam = torch.full((), lam0, dtype=tr.dtype, device=tr.device)
     hist = []
     for _ in range(iters):
         tr_try, lm_try = step_fn(tr, lm, lam)
@@ -361,6 +366,42 @@ def _cost_grid(tr, lm, obs_uv, local, obs_mask, K, delta):
     return torch.sum(torch.where(obs_mask, _huber_cost(r2, delta), 0.0))
 
 
+def _ba_solve_grid_eager(
+    tr,
+    lm,
+    obs_uv,
+    local,
+    obs_mask,
+    pose_free,
+    K,
+    iters: int = 5,
+    delta: float = 1.0,
+    lam0: float = 1e-4,
+    obs_gate_px: float = 0.0,
+):
+    """The body of :func:`ba_solve_grid`, run as PyTorch dispatches it
+    (what a CUDA graph of it captures)."""
+    if obs_gate_px > 0:
+        pred = geo.ba_project(
+            tr[:, None, :].expand(obs_mask.shape + (6,)), lm[local.long()], K
+        )
+        r0 = obs_uv - pred
+        ok = torch.sum(r0 * r0, dim=-1) < obs_gate_px * obs_gate_px
+        obs_mask = obs_mask & ok
+
+    def step_fn(tr_c, lm_c, lam):
+        U, V, Wc, b_pose, b_lm, has_obs = assemble_blocks_grid(
+            tr_c, lm_c, obs_uv, local, obs_mask, pose_free, K, delta
+        )
+        dp, dx = schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam)
+        return tr_c + dp * pose_free[:, None], lm_c + dx
+
+    def cost_fn(tr_c, lm_c):
+        return _cost_grid(tr_c, lm_c, obs_uv, local, obs_mask, K, delta)
+
+    return _lm_loop(tr, lm, lam0, iters, step_fn, cost_fn)
+
+
 def ba_solve_grid(
     tr,
     lm,
@@ -381,26 +422,69 @@ def ba_solve_grid(
     ``obs_gate_px`` > 0 drops observations whose INITIAL reprojection
     residual exceeds the gate before solving — the standard defense against
     corrupted associations, which Huber alone cannot contain when they are
-    numerous. The reference has no such gate (0 for strict parity)."""
-    if obs_gate_px > 0:
-        pred = geo.ba_project(
-            tr[:, None, :].expand(obs_mask.shape + (6,)), lm[local.long()], K
-        )
-        r0 = obs_uv - pred
-        ok = torch.sum(r0 * r0, dim=-1) < obs_gate_px * obs_gate_px
-        obs_mask = obs_mask & ok
+    numerous. The reference has no such gate (0 for strict parity).
 
-    def step_fn(tr_c, lm_c, lam):
-        U, V, Wc, b_pose, b_lm, has_obs = assemble_blocks_grid(
-            tr_c, lm_c, obs_uv, local, obs_mask, pose_free, K, delta
-        )
-        dp, dx = schur_solve(U, V, Wc, b_pose, b_lm, has_obs, pose_free, lam)
-        return tr_c + dp * pose_free[:, None], lm_c + dx
+    On a CUDA device the call replays its window shape's CUDA graph of
+    :func:`_ba_solve_grid_eager` (the same kernels in the same order, so the
+    same bits) and returns copies of the graph's outputs; elsewhere it runs
+    that body as it is."""
+    args = (tr, lm, obs_uv, local, obs_mask, pose_free, K)
+    kw = dict(iters=iters, delta=delta, lam0=lam0, obs_gate_px=obs_gate_px)
+    if tr.device.type != "cuda":
+        return _ba_solve_grid_eager(*args, **kw)
+    with torch.cuda.device(tr.device):
+        key = _graph_key(*args, **kw)
+        g = _GRAPHS.get(key)
+        if g is None:
+            g = _GRAPHS[key] = _SolveGraph(args, kw)
+        return g(args)
 
-    def cost_fn(tr_c, lm_c):
-        return _cost_grid(tr_c, lm_c, obs_uv, local, obs_mask, K, delta)
 
-    return _lm_loop(tr, lm, lam0, iters, step_fn, cost_fn)
+def _graph_key(tr, lm, obs_uv, local, obs_mask, pose_free, K, *, iters, delta, lam0, obs_gate_px):
+    """What a captured solve is fixed to: device, dtype, window poses P,
+    feature slots N, landmarks L_win, the iterations and the float
+    arguments (kernel arguments in the graph), and the inputs' dtypes."""
+    P, N = obs_mask.shape
+    return (tr.device, tr.dtype, P, N, lm.shape[0], int(iters), float(delta), float(lam0),
+            float(obs_gate_px), tuple(x.dtype for x in (lm, obs_uv, local, obs_mask, pose_free, K)))
+
+
+class _SolveGraph:
+    """One window shape's CUDA graph of :func:`_ba_solve_grid_eager`, with
+    the static buffers it reads (copies of the first call's inputs) and
+    writes (its outputs, in the graph's private memory pool)."""
+
+    def __init__(self, args, kw):
+        self.inputs = [a.clone() for a in args]
+        # Warm up on a side stream (library handles and workspaces are made
+        # outside the capture), then capture. Thread-local capture mode: a
+        # CUDA call that another thread makes meanwhile (the caller's frame
+        # prefetcher, a profiler's) does not invalidate the capture.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            _ba_solve_grid_eager(*self.inputs, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = _ba_solve_grid_eager(*self.inputs, **kw)
+        count("ba.graph.capture")
+
+    def __call__(self, args):
+        """Copy ``args`` into the static inputs, replay, and return copies of
+        the outputs: a later replay overwrites the graph's own."""
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        count("ba.graph.replay")
+        tr, lm, stats = self.outputs
+        return tr.clone(), lm.clone(), {k: v.clone() for k, v in stats.items()}
+
+
+# Captured solves by :func:`_graph_key`, kept for the process: a pipeline
+# built later (each drive of the benchmark builds its own) replays the graph
+# an earlier one captured.
+_GRAPHS: dict[tuple, _SolveGraph] = {}
 
 
 def _lm_step(tr, lm, p: BAProblem, lam, delta: float):
