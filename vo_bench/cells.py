@@ -1,8 +1,11 @@
 """The benchmark's files, found by name: ``BENCHMARK.json`` at the root of
 the checkout, ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``workloads/<cell>.json`` and ``metrics/<metric>.py`` under this folder.
-Adding a configuration, a traffic mix, a cell or a per-layer metric adds
-files here and entries in ``BENCHMARK.json``; nothing else changes."""
+``workloads/<cell>.json``, ``metrics/<metric>.py`` and
+``stages/<stage>.py`` (:func:`vo_bench.judge.stage_files`) under this
+folder. Adding a configuration, a traffic mix, a cell, a per-layer metric
+or a stage of the comparison that decides ``correct`` adds files here and
+entries in ``BENCHMARK.json`` (a stage: its file, and its limits in the
+cells' files); nothing else changes."""
 
 from __future__ import annotations
 

@@ -22,16 +22,19 @@ from vo_bench import cells, data, judge, run
 
 
 def readings(cell: cells.Cell, seed: int, device, data_root=data.DATA_ROOT, detail=None,
-             control: bool = True) -> dict:
+             control: bool = True, here=cells.HERE) -> dict:
+    """The program's and the control's numbers on one seed, the stage files
+    under ``here`` with the built-in stages'."""
     paths, frames = data.materialize(cell.traffic, seed, data_root)
     cfg = run.vo_config(cell, paths, int(cell.traffic["frames"]), seed)
+    stages = judge.stage_files(here)
     t0 = time.perf_counter()
-    calls, drv, _, stats = run.recorded_drive(cell, cfg, frames, device)
+    calls, drv, _, stats = run.recorded_drive(cell, cfg, frames, device, stages)
     boot = sum(not s["used_pnp"] for s in stats)
     out = {"seed": seed, "bootstraps": boot}
     for side, ctl in (("program", False), ("control", True))[: 2 if control else 1]:
         d = [] if detail is not None else None
-        out[side] = judge.judge(calls, drv, cell.spec["samples"], seed, control=ctl, detail=d)
+        out[side] = judge.judge(calls, drv, cell.spec["samples"], seed, control=ctl, detail=d, stages=stages)
         if detail is not None:
             detail.append({"seed": seed, "side": side, "calls": d})
     out["seconds"] = time.perf_counter() - t0

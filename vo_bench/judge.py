@@ -37,9 +37,37 @@ taken over all of them together (``essential_support``, ``ba_gain_ratio``):
 
 ``control=True`` puts the reference computed in TF32 in the program's
 place: the same numbers then read the control.
+
+A stage that these seven do not cover is added as a file,
+``stages/<stage>.py`` under the benchmark's folder, found by its name as
+``metrics/<name>.py`` is (:func:`stage_files`; no folder, no stage files).
+A stage file imports nothing of the program when it is loaded, and gives:
+
+- ``POINTS``: ``("module.path", "attribute")`` pairs of the program's
+  functions that the recorder wraps (:mod:`vo_bench.record`), imported
+  only when the correctness drive starts. A function that another stage
+  wraps too gets both wrappers, and each records its calls;
+- ``NUMBERS``: the names of the numbers it gives, none of them a built-in
+  stage's, ``repeat`` or another file's;
+- ``keep(arguments) -> dict`` and, optionally, ``keep_out(out)`` (default
+  ``record._copy``): what the recorder copies of a call's bound arguments
+  and of its outputs, into ``rec["args"]`` and ``rec["out"]``;
+- ``judge(rec, index, drv, control) -> dict``: the readings of one call,
+  ``index`` its position among its stage's calls (as
+  :meth:`Drive.corner_image` takes it). Keys that start ``sum.`` are added
+  up over the sampled calls, and the optional ``summed(sums) -> dict``
+  turns those sums into numbers (it is not called where there are none).
+
+Stage files are judged after the seven, in the order of their names, so
+they draw from the seed's generator after them; ``samples[<stage>]`` caps
+a file's draws as a built-in's (all calls by default), and a file whose
+numbers no limit names is not judged.
 """
 
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -91,7 +119,7 @@ def _med(x):
     return float(torch.median(x)) if x.numel() else None
 
 
-def _lk(rec, drv: Drive, control: bool):
+def _lk(rec, index: int, drv: Drive, control: bool):
     a, out = rec["args"], rec["out"]
     dev = a["xy"].device
     idx = drv.image_of(rec["n"])
@@ -110,10 +138,10 @@ def _lk(rec, drv: Drive, control: bool):
     return {"lk_px": float(gap.mean()) if gap.numel() else None}
 
 
-def _corners(rec, idx: int, drv: Drive, control: bool):
+def _corners(rec, index: int, drv: Drive, control: bool):
     a, (xy, score, valid) = rec["args"], rec["out"]
     dev = xy.device
-    raw = drv.frame(idx, dev, torch.float32)
+    raw = drv.frame(drv.corner_image(index, rec), dev, torch.float32)
     if not torch.equal(a["img"], raw):  # the program's frame is not the harness's
         return {"corner_rel": float("inf")}
     ref = image.min_eig_response(raw, F64)
@@ -124,7 +152,7 @@ def _corners(rec, idx: int, drv: Drive, control: bool):
     return {"corner_rel": float(gap.max() / ref.abs().max()) if gap.numel() else None}
 
 
-def _essential(rec, drv: Drive, control: bool):
+def _essential(rec, index: int, drv: Drive, control: bool):
     a, (E, _) = rec["args"], rec["out"]
     p1, p2, valid, K = a["p1"], a["p2"], a["valid"], a["K"]
     draw = (a["gen_state"], a["n_hypos"], a["thresh_px"])
@@ -135,7 +163,7 @@ def _essential(rec, drv: Drive, control: bool):
     return {"sum.e_held": held(E), "sum.e_ref_held": held(E_ref)}
 
 
-def _pose(rec, drv: Drive, control: bool):
+def _pose(rec, index: int, drv: Drive, control: bool):
     a, (R, t, X, front) = rec["args"], rec["out"]
     d = lambda x: x.double()  # noqa: E731
     R_ref, t_ref, _, _ = essential.recover_pose(d(a["E"]), d(a["p1"]), d(a["p2"]), a["valid"], d(a["K"]), F64)
@@ -150,7 +178,7 @@ def _pose(rec, drv: Drive, control: bool):
     return {"pose_rad": gap, "tri_rel": _med(rel[front])}
 
 
-def _ba(rec, drv: Drive, control: bool):
+def _ba(rec, index: int, drv: Drive, control: bool):
     """Also the two falls of the cost that ``ba_gain_ratio`` sums."""
     a, (tr, lm) = rec["args"], rec["out"]
     keys = ("tr", "lm", "obs_uv", "local", "obs_mask", "pose_free", "K")
@@ -171,7 +199,7 @@ def _pose_gap(R, t, R_ref, t_ref) -> float:
     return float(max((R - R_ref).abs().max(), dt.max()))
 
 
-def _gate(rec, drv: Drive, control: bool):
+def _gate(rec, index: int, drv: Drive, control: bool):
     a = rec["args"]
     R, t, accepted = rec["out"]
     args = [a[k] for k in ("R_delta", "t_delta", "R_prev", "t_prev", "R_s_prev", "t_s_prev", "scale")]
@@ -183,7 +211,7 @@ def _gate(rec, drv: Drive, control: bool):
     return {"gate_rel": _pose_gap(R, t, R_ref, t_ref)}
 
 
-def _stitch(rec, drv: Drive, control: bool):
+def _stitch(rec, index: int, drv: Drive, control: bool):
     a = rec["args"]
     R, t = rec["out"]
     R_ref, t_ref = pose.stitch(a["R_hist"], a["t_hist"], a["L"], F64)
@@ -192,7 +220,8 @@ def _stitch(rec, drv: Drive, control: bool):
     return {"stitch_rel": _pose_gap(np.stack(R), np.stack(t), R_ref, t_ref)}
 
 
-JUDGES = {"lk": _lk, "essential": _essential, "pose": _pose, "ba": _ba, "gate": _gate, "stitch": _stitch}
+JUDGES = {"lk": _lk, "corners": _corners, "essential": _essential, "pose": _pose, "ba": _ba, "gate": _gate,
+          "stitch": _stitch}
 
 
 def _summed(sums: dict) -> dict:
@@ -207,31 +236,72 @@ def _summed(sums: dict) -> dict:
     return out
 
 
+def stage_files(here: Path) -> dict:
+    """The stage files ``<here>/stages/<stage>.py`` by stage name, in the
+    order of their names; none where the folder is missing. Raises
+    ``ValueError`` for a file that lacks part of the contract (module
+    docstring), takes the name of a built-in stage or of the recorder's
+    ``frame`` and ``ba_step``, or gives a number that is taken."""
+    folder = here / "stages"
+    if not folder.is_dir():
+        return {}
+    taken = {"repeat", *(n for names in NUMBERS.values() for n in names)}
+    out = {}
+    for path in sorted(folder.glob("[!_]*.py")):
+        name = path.stem
+        if name in (*STAGES, "frame", "ba_step"):
+            raise ValueError(f"stage file {path.name}: {name!r} is a built-in stage")
+        spec = importlib.util.spec_from_file_location(f"vo_bench_stage_{name.replace('.', '_')}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        lacks = [k for k in ("POINTS", "NUMBERS", "keep", "judge") if not hasattr(mod, k)]
+        if lacks:
+            raise ValueError(f"stage file {path.name} lacks {', '.join(lacks)}")
+        clash = taken & set(mod.NUMBERS)
+        if clash:
+            raise ValueError(f"stage file {path.name}: {', '.join(sorted(clash))} taken")
+        taken |= set(mod.NUMBERS)
+        out[name] = mod
+    return out
+
+
+def _declared(stage: str, names, got: dict) -> dict:
+    """``got``, where every number it gives is one of the stage's ``names``."""
+    extra = [k for k in got if not k.startswith("sum.") and k not in names]
+    if extra:
+        raise ValueError(f"stage {stage} gave {', '.join(extra)}, not among its NUMBERS")
+    return got
+
+
 def judge(calls: dict, drv: Drive, samples: dict, seed: int, control: bool = False,
-          detail: list | None = None, numbers_wanted=None) -> dict:
+          detail: list | None = None, numbers_wanted=None, stages: dict | None = None) -> dict:
     """The largest reading of each number over the calls of each stage drawn
     from ``seed`` (``samples[stage]`` of them; all when there are fewer),
     or, for the summed numbers, the reading over all of them together.
-    A stage with no call gives no number; ``numbers_wanted`` limits the
-    stages judged to those that give one of these numbers. ``detail``, when
-    given, receives each call's readings as (stage, call index, frame step,
-    readings)."""
+    The seven built-in stages first, then the stage files ``stages``
+    (:func:`stage_files`). A stage with no call gives no number;
+    ``numbers_wanted`` limits the stages judged to those that give one of
+    these numbers. ``detail``, when given, receives each call's readings as
+    (stage, call index, frame step, readings)."""
     rng = np.random.default_rng(seed)
     numbers: dict[str, float] = {}
-    sums: dict[str, float] = {}
-    for stage in STAGES:
-        if numbers_wanted is not None and not set(NUMBERS[stage]) & set(numbers_wanted):
-            continue
-        recs = list(enumerate(calls.get(stage, [])))
+
+    def put_summed(got: dict) -> None:
+        for name, v in got.items():
+            numbers[name] = v if v == v else float("inf")
+
+    def stage_sums(stage: str, names, judge_call) -> dict:
+        """Judge the stage's sampled calls into ``numbers``; returns its sums."""
+        sums: dict[str, float] = {}
+        if numbers_wanted is not None and not set(names) & set(numbers_wanted):
+            return sums
+        recs = calls.get(stage, [])
         if not recs:
-            continue
-        take = min(samples.get(stage, len(recs)), len(recs))
-        for i in sorted(rng.choice(len(recs), size=take, replace=False).tolist()):
-            j, rec = recs[i]
-            if stage == "corners":
-                got = _corners(rec, drv.corner_image(j, rec), drv, control)
-            else:
-                got = JUDGES[stage](rec, drv, control)
+            return sums
+        n_take = min(samples.get(stage, len(recs)), len(recs))
+        for j in sorted(rng.choice(len(recs), size=n_take, replace=False).tolist()):
+            rec = recs[j]
+            got = _declared(stage, names, judge_call(rec, j, drv, control))
             if detail is not None:
                 detail.append((stage, j, rec["n"], got))
             for name, v in got.items():
@@ -243,6 +313,14 @@ def judge(calls: dict, drv: Drive, samples: dict, seed: int, control: bool = Fal
                 if v != v:  # NaN: the stage produced no usable answer
                     v = float("inf")
                 numbers[name] = max(numbers.get(name, -float("inf")), v)
-    for name, v in _summed(sums).items():
-        numbers[name] = v if v == v else float("inf")
+        return sums
+
+    sums: dict[str, float] = {}
+    for stage in STAGES:
+        sums.update(stage_sums(stage, NUMBERS[stage], JUDGES[stage]))
+    put_summed(_summed(sums))
+    for stage, mod in (stages or {}).items():
+        file_sums = stage_sums(stage, mod.NUMBERS, mod.judge)
+        if file_sums and hasattr(mod, "summed"):
+            put_summed(_declared(stage, mod.NUMBERS, mod.summed(file_sums)))
     return numbers

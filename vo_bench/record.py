@@ -10,12 +10,21 @@ wrapper set on the module attribute sees every call. Two uses:
   window, the profiled one too.
 - :class:`Recorder` (the correctness drive, after the window): each stage
   call's inputs and outputs, copied, for the reference to judge.
+
+The Recorder also takes the stage files ``stages/<stage>.py``
+(:func:`vo_bench.judge.stage_files`, whose docstring holds their contract):
+each wraps the functions its ``POINTS`` name, imported when the recorded
+drive starts, and records ``{"n", "args": keep(arguments), "out":
+keep_out(out)}`` per call under its own name. Their wrappers go on first,
+under the built-in ones, so a stage file that wraps ``frame_step`` reads
+the step's own ``n``; a function that two stages wrap records into both.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import inspect
 import time
 from dataclasses import dataclass, field
@@ -23,14 +32,16 @@ from dataclasses import dataclass, field
 import torch
 
 
-def _patch_points():
-    """(module, attribute) of every stage function the harness wraps."""
+def _patch_points(stages: dict | None = None):
+    """(module, attribute) of every stage function the harness wraps: the
+    built-in stages', then the ``POINTS`` of each stage file in ``stages``,
+    imported here."""
     from pmv_tpu_torch.ba import schur_lm
     from pmv_tpu_torch.frontend import corners
     from pmv_tpu_torch.pipeline import fused, segmented, steps
     from pmv_tpu_torch.solvers import essential
 
-    return {
+    points = {
         "frame": [(fused, "frame_step")],
         "ba_step": [(fused, "ba_step")],
         "lk": [(steps, "track_step_cached")],
@@ -41,13 +52,17 @@ def _patch_points():
         "gate": [(fused, "motion_gate")],
         "stitch": [(segmented, "stitch_segments")],
     }
+    for name, mod in (stages or {}).items():
+        points[name] = [(importlib.import_module(m), attr) for m, attr in mod.POINTS]
+    return points
 
 
 @contextlib.contextmanager
-def patched(wrappers: dict):
+def patched(wrappers: dict, stages: dict | None = None):
     """Set ``wrappers[stage](original) -> wrapper`` on every patch point of
-    each stage; restore the originals on exit."""
-    points = _patch_points()
+    each stage, in the order of ``wrappers``, on top of what is there; the
+    stage files ``stages`` add theirs. Restore the originals on exit."""
+    points = _patch_points(stages)
     saved = []
     try:
         for stage, make in wrappers.items():
@@ -124,11 +139,13 @@ class Recorder:
     """Every stage call of one drive: ``calls[stage]`` is a list of dicts
     with the frame-step index ``n`` the call belongs to (-1 before the first
     frame step), the bound arguments (``args``) and the outputs (``out``),
-    all copied at the call."""
+    all copied at the call. ``stages``: the stage files recorded beside the
+    built-in stages."""
 
-    def __init__(self):
+    def __init__(self, stages: dict | None = None):
         self.n = -1
         self.calls: dict[str, list] = {}
+        self.stages = stages or {}
 
     def _wrap(self, stage: str, keep, keep_out=_copy):
         """A wrapper factory recording ``keep(arguments)`` (a callable, or a
@@ -173,7 +190,10 @@ class Recorder:
             rec["gen_state"] = a["gen"].get_state()
             return rec
 
+        files = {name: self._wrap(name, mod.keep, getattr(mod, "keep_out", _copy))
+                 for name, mod in self.stages.items()}
         return {
+            **files,
             "frame": frame,
             "lk": self._wrap("lk", lambda a: {
                 "xy": _copy(a["prev_table"].xy), "valid": _copy(a["prev_table"].valid),

@@ -26,7 +26,8 @@ prints one JSON object as its last line of standard output.
   give the timed drives' outputs bit for bit (``repeat``), and each of its
   recorded stage calls drawn from the seed is held to the plain float64
   reference (:mod:`vo_bench.judge`), each number against the limit in
-  ``workloads/<cell>.json``.
+  ``workloads/<cell>.json``. The stage files ``stages/<stage>.py``, if
+  any, are recorded and judged after the built-in stages.
 """
 
 from __future__ import annotations
@@ -164,14 +165,16 @@ def device_info(device, chips: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def recorded_drive(cell: cells.Cell, cfg, frames_arr, device):
-    """One drive with the stage recorder on. Returns (the recorded calls,
-    where their frames are (:class:`vo_bench.judge.Drive`), the drive's
-    outputs, its frame statistics)."""
+def recorded_drive(cell: cells.Cell, cfg, frames_arr, device, stages: dict | None = None):
+    """One drive with the stage recorder on, the stage files ``stages``
+    (:func:`vo_bench.judge.stage_files`) beside the built-in stages. Returns
+    (the recorded calls, where their frames are
+    (:class:`vo_bench.judge.Drive`), the drive's outputs, its frame
+    statistics)."""
     from vo_bench import judge, record
 
-    rec = record.Recorder()
-    with record.patched(rec.wrappers()):
+    rec = record.Recorder(stages)
+    with record.patched(rec.wrappers(), stages):
         pipe = make_pipeline(cfg, cell.traffic["segments"], device)
         pipe.run()
     starts = None
@@ -181,15 +184,18 @@ def recorded_drive(cell: cells.Cell, cfg, frames_arr, device):
     return rec.calls, drv, outputs(pipe), pipe.frame_stats
 
 
-def check(cell: cells.Cell, cfg, frames_arr, seed: int, drives: list, device) -> tuple[dict, dict]:
-    """The correctness drive and the comparison. Returns (numbers, limits)."""
+def check(cell: cells.Cell, cfg, frames_arr, seed: int, drives: list, device,
+          here: Path = cells.HERE) -> tuple[dict, dict]:
+    """The correctness drive and the comparison, with the stage files under
+    ``here``. Returns (numbers, limits)."""
     from vo_bench import judge
 
-    calls, drv, out, _ = recorded_drive(cell, cfg, frames_arr, device)
+    stages = judge.stage_files(here)
+    calls, drv, out, _ = recorded_drive(cell, cfg, frames_arr, device, stages)
     numbers = {"repeat": float(sum(not (d.ok and same(d.out, out)) for d in drives))}
     del out
     limits = dict(cell.spec["limits"])
-    numbers.update(judge.judge(calls, drv, cell.spec["samples"], seed, numbers_wanted=limits))
+    numbers.update(judge.judge(calls, drv, cell.spec["samples"], seed, numbers_wanted=limits, stages=stages))
     return numbers, limits
 
 
@@ -262,7 +268,7 @@ def run(args, device, t_proc: float, bench_file: Path = cells.ROOT / "BENCHMARK.
     log(f"vo_bench: set-up {setup_s:.1f} s; {len(drives)} drive(s) of "
         f"{', '.join(f'{d.wall_s:.3f}' for d in drives)} s; window closed {time.perf_counter() - t_proc:.1f} s after start")
 
-    numbers, limits = check(cell, cfg, frames_arr, args.seed, drives, device)
+    numbers, limits = check(cell, cfg, frames_arr, args.seed, drives, device, here)
     log(f"vo_bench: check done {time.perf_counter() - t_proc:.1f} s after start")
     failed = sum(d.frames for d in drives if not d.ok)
     missing = [k for k in limits if k not in numbers]

@@ -46,17 +46,22 @@ def card():
 
 
 def write_bench(root: Path, cell: str = "tiny.corridor16", segments: int = 1, frames: int = 16,
-                limits: dict = TINY_LIMITS) -> tuple[Path, Path]:
-    """A benchmark in ``root`` that holds one cell of the tiny configuration,
-    written as a later change would add one: a configuration file, a traffic
-    file, a cell file, the repository's metric readers, and entries in a
+                limits: dict = TINY_LIMITS, vo_config: dict = TINY,
+                stages: dict | None = None) -> tuple[Path, Path]:
+    """A benchmark in ``root`` that holds one cell of the tiny configuration
+    (or ``vo_config``), written as a later change would add one: a
+    configuration file, a traffic file, a cell file, the repository's metric
+    readers, the stage files ``stages`` (name: source), and entries in a
     copy of ``BENCHMARK.json``. Returns (BENCHMARK.json, its vo_bench)."""
     here = root / "vo_bench"
     for sub in ("configs", "traffic", "workloads"):
         (here / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(cells.HERE / "metrics", here / "metrics", dirs_exist_ok=True)
     config, traffic = cell.split(".", 1)
-    (here / "configs" / f"{config}.json").write_text(json.dumps({"name": config, "vo_config": TINY}))
+    (here / "configs" / f"{config}.json").write_text(json.dumps({"name": config, "vo_config": vo_config}))
+    for name, source in (stages or {}).items():
+        (here / "stages").mkdir(exist_ok=True)
+        (here / "stages" / f"{name}.py").write_text(source)
     (here / "traffic" / f"{traffic}.json").write_text(json.dumps(
         {"name": traffic, "scene": TINY_SCENE, "frames": frames, "segments": segments}))
     (here / "workloads" / f"{cell}.json").write_text(json.dumps(
@@ -68,3 +73,47 @@ def write_bench(root: Path, cell: str = "tiny.corridor16", segments: int = 1, fr
         m["workloads"] = m["workloads"] + [cell]
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return root / "BENCHMARK.json", here
+
+
+# Stage files as a later change would add them (vo_bench/judge.py's
+# docstring): a toy stage stacked on the built-in ``gate`` stage's function,
+# and one on the kNN matcher, which no built-in stage wraps.
+GATE_STAGE = '''"""Toy stage: the motion gate's new rotation stays a rotation."""
+import torch
+
+from vo_bench import record
+
+POINTS = [("pmv_tpu_torch.pipeline.fused", "motion_gate")]
+NUMBERS = ["toy_orth", "toy_calls"]
+
+
+def keep(arguments):
+    return {"scale": record._copy(arguments["scale"])}
+
+
+def judge(rec, index, drv, control):
+    R = rec["out"][0].double()
+    return {"toy_orth": float((R @ R.T - torch.eye(3, dtype=R.dtype)).abs().max()), "sum.calls": 1.0}
+
+
+def summed(sums):
+    return {"toy_calls": sums["sum.calls"]}
+'''
+KNN_STAGE = '''"""Toy stage: the kNN matcher keeps no slot the previous frame did not hold."""
+from vo_bench import record
+
+POINTS = [("pmv_tpu_torch.frontend.knn_matcher", "knn_match")]
+NUMBERS = ["knn_new_slots"]
+
+
+def keep(arguments):
+    return {"valid": record._copy(arguments["prev_table"].valid)}
+
+
+def keep_out(out):
+    return record._copy(out.valid)
+
+
+def judge(rec, index, drv, control):
+    return {"knn_new_slots": float((rec["out"] & ~rec["args"]["valid"]).sum())}
+'''

@@ -1,15 +1,17 @@
 """The benchmark's files: BENCHMARK.json against the contract it is
-written to, and every configuration, traffic, cell and metric file found by
-its name."""
+written to, and every configuration, traffic, cell, metric and stage file
+found by its name."""
 
 from __future__ import annotations
 
 import json
 import re
+import subprocess
+import sys
 
 import pytest
 
-from vo_bench import cells
+from vo_bench import cells, judge
 
 BENCH = json.loads((cells.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -55,6 +57,47 @@ def test_each_cell_is_found_by_name(cell):
     assert c.spec["limits"]["repeat"] == 0.0
     assert {m["name"] for m in c.end_to_end} == {"vo_frames_per_sec", "setup_s"}
     assert c.per_layer
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_each_limit_and_sample_count_names_what_the_comparison_has(cell):
+    """A limit names ``repeat``, a built-in stage's number or a stage
+    file's (one on anything else would read "missing" in every run); a
+    sample count names a built-in stage or a stage file."""
+    stages = judge.stage_files(cells.HERE)
+    numbers = {"repeat", *(n for names in judge.NUMBERS.values() for n in names),
+               *(n for mod in stages.values() for n in mod.NUMBERS)}
+    spec = cells.find(cell).spec
+    assert set(spec["limits"]) <= numbers
+    assert set(spec["samples"]) <= {*judge.STAGES, *stages}
+
+
+def test_stage_files_have_names_and_numbers_of_their_own():
+    stages = judge.stage_files(cells.HERE)  # refuses a taken name or number
+    assert all(NAME.match(s) for s in stages)
+    assert not set(stages) & {*judge.STAGES, "frame", "ba_step"}
+    numbers = [n for mod in stages.values() for n in mod.NUMBERS]
+    assert len(numbers) == len(set(numbers))
+    assert not set(numbers) & {"repeat", *(n for names in judge.NUMBERS.values() for n in names)}
+
+
+def test_loading_a_stage_file_imports_nothing_of_the_program(tmp_path):
+    """The repository's stage files and two that wrap the program's
+    functions, loaded: no module of the port, the JAX package or JAX."""
+    code = f"""
+import json, sys
+from pathlib import Path
+from vo_bench import cells, judge
+from vo_bench.tests.conftest import GATE_STAGE, KNN_STAGE, write_bench
+_, here = write_bench(Path({str(tmp_path)!r}), stages={{"toy": GATE_STAGE, "knn": KNN_STAGE}})
+loaded = {{**judge.stage_files(cells.HERE), **judge.stage_files(here)}}
+print(json.dumps([sorted(loaded), sorted({{m.split(".")[0] for m in sys.modules}})]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True,
+                         cwd=cells.ROOT)
+    loaded, tops = json.loads(out.stdout.strip().splitlines()[-1])
+    assert {"toy", "knn"} <= set(loaded)
+    assert not set(tops) & {"pmv_tpu_torch", "pmv_tpu", "jax", "jaxlib", "flax"}
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=[m["name"] for m in BENCH["per_layer"]])
